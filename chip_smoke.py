@@ -1,0 +1,439 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch / CUDA port (`speinet_tpu_torch`) on one
+NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with one CUDA card and the CUDA
+toolkit. In order it:
+1. builds the four hand-written kernels from `speinet_tpu_torch/csrc/`;
+2. holds each kernel against its plain PyTorch version on the card, in
+   bf16 at the shapes of the 720p main path, and times kernel, plain
+   version and (where one PyTorch call computes the same function) the
+   library call, beside the least time the card could take;
+3. runs the cached-video engine (`Inference.infer_video`) on a synthetic
+   12-frame 1280x720 video at the full width of the SPEINet template
+   (n_feat 32, embed_dim 256, depths 6x6, 8 heads, window 5, bf16) with
+   seeded random weights and 2 windows per chunk, so 'sharp', 'self' and a
+   mixed chunk all occur; the launch counts of that run show every kernel
+   was on the path;
+4. checks the port on the card against the port's float32 plain path on
+   the CPU, same weights, on a small input;
+5. prints the `kernels` JSON line, the card's name and power limit, and as
+   the last line {"ok": true, "device": {...}}.
+
+Any failure raises and exits non-zero; without CUDA, or outside a checkout,
+it exits non-zero before printing any result. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+PEAK_BF16 = 989e12       # dense bf16 tensor-core FLOP/s, H100 SXM data sheet
+PEAK_BYTES = 3.35e12     # HBM3 bytes/s, H100 SXM data sheet
+
+
+def bound(flops: float, nbytes: float):
+    """(bound_ms, bound_by): the larger of the operations over the bf16 peak
+    and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_BF16, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean ms per call from CUDA events around `iters` back-to-back calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def check_conv(rng_seed: int):
+    """K1 at every main-path shape: (x shape, k, Cout, stride)."""
+    import torch
+    import torch.nn.functional as F
+    from speinet_tpu_torch.kernels import conv2d, conv2d_plain
+
+    cases = [
+        ("in_conv 5x5 3->32 720x1280", (1, 720, 1280, 3), 5, 32, 1),
+        ("lv1 res 5x5 32->32 720x1280", (1, 720, 1280, 32), 5, 32, 1),
+        ("enc1 5x5/2 32->64 720x1280", (1, 720, 1280, 32), 5, 64, 2),
+        ("lv2 res 5x5 64->64 360x640", (1, 360, 640, 64), 5, 64, 1),
+        ("enc2 5x5/2 64->128 360x640", (1, 360, 640, 64), 5, 128, 2),
+        ("lv3 res 5x5 128->128 180x320", (1, 180, 320, 128), 5, 128, 1),
+        ("search3 3x3 64->64 360x640", (1, 360, 640, 64), 3, 64, 1),
+        ("search33 3x3 64->32 720x1280", (1, 720, 1280, 64), 3, 32, 1),
+        ("search43 3x3 32->32 720x1280", (1, 720, 1280, 32), 3, 32, 1),
+    ]
+    g = torch.Generator(device="cuda").manual_seed(rng_seed)
+    rows = []
+    for label, shape, k, co, stride in cases:
+        cin = shape[-1]
+        x = torch.rand(shape, generator=g, device="cuda").to(torch.bfloat16)
+        w = ((torch.rand((k, k, cin, co), generator=g, device="cuda") * 2 - 1)
+             * (k * k * cin) ** -0.5).to(torch.bfloat16)
+        b = (torch.rand((co,), generator=g, device="cuda") * 2 - 1) * 0.1
+        out = conv2d(x, w, b, relu=True, stride=stride)
+        ref = conv2d_plain(x, w, b, relu=True, stride=stride)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        # both round one f32 sum to bf16: they may differ by one bf16 step
+        # (2^-8 relative) where the f32 sums' order flips a rounding
+        tol = 2.0 ** -7 * max(scale, 1.0)
+        if not err <= tol:
+            raise AssertionError(f"conv2d {label}: max err {err} > {tol}")
+        xc = x.permute(0, 3, 1, 2)                     # channels_last view
+        wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        bb = b.to(torch.bfloat16)
+        ms = time_ms(lambda: conv2d(x, w, b, relu=True, stride=stride))
+        plain_ms = time_ms(lambda: conv2d_plain(x, w, b, relu=True, stride=stride),
+                           iters=3, warmup=1)
+        lib_ms = time_ms(lambda: F.conv2d(xc, wc, bb, stride=stride, padding=k // 2))
+        ho, wo = out.shape[1:3]
+        flops = 2.0 * ho * wo * k * k * cin * co
+        bms, by = bound(flops, nbytes(x, w, b, out))
+        rows.append(dict(shape=label, max_abs_err=err, tol=tol, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                         bound_by=by, flops=flops))
+    return rows
+
+
+def swin_weights(g, c: int, hidden: int, heads: int):
+    import torch
+    from speinet_tpu_torch.kernels import SwinBlockWeights
+    from speinet_tpu_torch.models.swinir import relative_position_index
+
+    def mat(o, i):
+        return ((torch.rand((o, i), generator=g, device="cuda") * 2 - 1)
+                * i ** -0.5).to(torch.bfloat16)
+
+    def vec(n, lo, hi):
+        return lo + (hi - lo) * torch.rand((n,), generator=g, device="cuda")
+
+    table = (torch.rand((81, heads), generator=g, device="cuda") * 2 - 1) * 0.1
+    idx = torch.from_numpy(relative_position_index(5, 5).reshape(-1)).cuda()
+    relbias = table[idx].reshape(25, 25, heads).permute(2, 0, 1).contiguous()
+    return SwinBlockWeights(
+        vec(c, 0.8, 1.2), vec(c, -0.1, 0.1), mat(2 * c, c), vec(2 * c, -0.1, 0.1),
+        mat(c, c), vec(c, -0.1, 0.1), mat(c, c), vec(c, -0.1, 0.1), relbias,
+        vec(c, 0.8, 1.2), vec(c, -0.1, 0.1), mat(hidden, c), vec(hidden, -0.1, 0.1),
+        mat(c, hidden), vec(c, -0.1, 0.1))
+
+
+def check_swin(rng_seed: int):
+    """K2 on one 720p lv3 stream pair [2, 180, 320, 256], shift 0 and 2. The
+    check must also reject the kernel run with two planted faults: the
+    relative-position bias dropped, and (shift 2) the shift mask dropped."""
+    import torch
+    from speinet_tpu_torch.kernels import (block_errors, block_errors_pass,
+                                          swin_block, swin_block_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(rng_seed)
+    c, hidden, heads, ws = 256, 512, 8, 5
+    b, h, w = 2, 180, 320
+    wts = swin_weights(g, c, hidden, heads)
+    no_bias = wts._replace(relbias=torch.zeros_like(wts.relbias))
+    rows = []
+    for shift in (0, 2):
+        x = torch.randn((b, h, w, c), generator=g, device="cuda").to(torch.bfloat16)
+        y = torch.randn((b, h, w, c), generator=g, device="cuda").to(torch.bfloat16)
+        out = swin_block(x, y, wts, ws, shift, 0, 0, heads)
+        ref = swin_block_plain(x, y, wts, ws, shift, 0, 0, heads)
+        e = block_errors(out, ref, x)
+        if not block_errors_pass(e):
+            raise AssertionError(f"swin_block shift {shift}: {e}")
+        faults = {"no_relbias": swin_block(x, y, no_bias, ws, shift, 0, 0, heads)}
+        if shift:     # the kernel takes its mask from `shift` alone
+            faults["no_shift_mask"] = swin_block(x, y, wts, ws, 0, 0, 0, heads)
+        planted = {k: block_errors(v, ref, x) for k, v in faults.items()}
+        for k, fe in planted.items():
+            if block_errors_pass(fe):
+                raise AssertionError(f"swin_block check accepts planted fault {k}: {fe}")
+        ms = time_ms(lambda: swin_block(x, y, wts, ws, shift, 0, 0, heads), iters=5)
+        plain_ms = time_ms(lambda: swin_block_plain(x, y, wts, ws, shift, 0, 0, heads),
+                           iters=2, warmup=1)
+        tokens = b * h * w
+        n = ws * ws
+        flops = 2.0 * tokens * (4 * c * c + 2 * c * hidden) + 4.0 * tokens * n * c
+        wbytes = nbytes(*wts)
+        bms, by = bound(flops, nbytes(x, y, out) + wbytes)
+        rows.append(dict(shape=f"[2,180,320,256] shift {shift}", **e,
+                         planted_faults_rejected=planted, ms=ms,
+                         plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                         bound_by=by, flops=flops))
+    return rows
+
+
+def check_roll(rng_seed: int):
+    """K3 on [2, 180, 320, 256] bf16 by (2, 2) and back."""
+    import torch
+    from speinet_tpu_torch.kernels import roll2d, roll2d_plain
+
+    g = torch.Generator(device="cuda").manual_seed(rng_seed)
+    x = torch.randn((2, 180, 320, 256), generator=g, device="cuda").to(torch.bfloat16)
+    rows = []
+    for sh in (2, -2):
+        out = roll2d(x, sh, sh)
+        ref = roll2d_plain(x, sh % 180, sh % 320)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        if err != 0.0:
+            raise AssertionError(f"roll2d by {sh}: max err {err} (a copy is exact)")
+        ms = time_ms(lambda: roll2d(x, sh, sh), iters=20)
+        plain_ms = time_ms(lambda: roll2d_plain(x, sh % 180, sh % 320), iters=20)
+        lib_ms = time_ms(lambda: torch.roll(x, (-sh, -sh), dims=(1, 2)), iters=20)
+        bms, by = bound(0.0, 2 * nbytes(x))
+        rows.append(dict(shape=f"[2,180,320,256] by {sh}", max_abs_err=err, tol=0.0,
+                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bms, bound_by=by))
+    return rows
+
+
+def check_corr(rng_seed: int):
+    """K4 at 720p lv3 with the 'sharp' reference and the transposed 'self'."""
+    import torch
+    import torch.nn.functional as F
+    from speinet_tpu_torch.kernels import banded_corr_argmax, banded_corr_argmax_plain
+    from speinet_tpu_torch.models.search_transfer import patch_inv_norms
+
+    g = torch.Generator(device="cuda").manual_seed(rng_seed)
+    h, w, c = 180, 320, 128
+    f = torch.rand((1, h, w, c), generator=g, device="cuda").to(torch.bfloat16)
+    sharp = torch.rand((1, h, w, c), generator=g, device="cuda").to(torch.bfloat16)
+    rows = []
+    for routing in ("sharp", "self"):
+        if routing == "sharp":
+            ref = sharp
+        else:
+            ref = torch.flip(f.transpose(1, 2), dims=(1,)).contiguous()
+        inv = patch_inv_norms(ref).contiguous()
+        s, idx = banded_corr_argmax(f, ref, inv)
+        s_p, idx_p = banded_corr_argmax_plain(f, ref, inv)
+        torch.cuda.synchronize()
+        err = (s - s_p).abs().max().item()
+        scale = s_p.abs().max().item()
+        # same bf16 products, f32 sums of 1152 terms in another order
+        tol = 1e-5 * max(scale, 1.0)
+        if not err <= tol:
+            raise AssertionError(f"corr {routing}: max |S err| {err} > {tol}")
+        # an index may differ only where it attains the max within tol
+        diff = (idx != idx_p).nonzero()
+        if diff.numel():
+            lu = F.unfold(f.permute(0, 3, 1, 2).float(), 3, padding=1)[0]
+            ru = F.unfold(ref.permute(0, 3, 1, 2).float(), 3, padding=1)[0]
+            p = diff[:, 1]
+            q = idx[0, p].long()
+            at_k = (lu[:, p] * ru[:, q]).sum(0) * inv[0, q]
+            gap = (at_k - s_p[0, p]).abs().max().item()
+            if not gap <= tol:
+                raise AssertionError(f"corr {routing}: index off the max by {gap}")
+        ms = time_ms(lambda: banded_corr_argmax(f, ref, inv), iters=3, warmup=1)
+        plain_ms = time_ms(lambda: banded_corr_argmax_plain(f, ref, inv),
+                           iters=1, warmup=1)
+        l = h * w
+        flops = 2.0 * 3 * l * l * c     # the banded form's work
+        bms, by = bound(flops, nbytes(f, ref, inv, s, idx))
+        rows.append(dict(shape=f"{routing} F[1,180,320,128] G{list(ref.shape)}",
+                         max_abs_err=err, tol=tol, idx_differs=int(diff.shape[0]),
+                         ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                         bound_by=by, flops=flops))
+    return rows
+
+
+def synthetic_video(n: int, h: int, w: int, seed: int):
+    """n uint8 HxWx3 frames: smooth moving patterns plus noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    frames = []
+    for i in range(n):
+        base = (127 + 70 * np.sin(xx / 37.0 + 0.3 * i) * np.cos(yy / 29.0)
+                + 30 * np.sin((xx + yy) / 11.0 - 0.2 * i))
+        img = np.stack([base, 0.9 * base + 10, 0.8 * base + 20], -1)
+        img += 6 * rng.standard_normal((h, w, 1)).astype(np.float32)
+        frames.append(np.clip(img, 0, 255).astype(np.uint8))
+    return frames
+
+
+def run_main_path(cfg, n_frames: int, h: int, w: int):
+    """The cached engine on a synthetic video; returns (inference, counts, s)."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from speinet_tpu_torch.infer import Inference
+    from speinet_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    frames = synthetic_video(n_frames, h, w, seed=1)
+    keys = [f"synthetic/{i:08d}" for i in range(n_frames)]
+    store = dict(zip(keys, frames))
+    labels = np.zeros(n_frames, np.int64)
+    labels[[0, n_frames - 1]] = 1     # 12 frames, 2 per chunk: sharp x3, mixed, self x2
+    with tempfile.TemporaryDirectory() as res:
+        inf = Inference(cfg, data_path=res, model_path="", result_path=res,
+                        save_image=False, batch_windows=2, device="cuda", seed=0)
+        try:
+            with ThreadPoolExecutor(max_workers=4) as pool:
+                # warm-up chunk: first-use costs (allocator, cuDNN plans)
+                inf.infer_video("warmup", keys[:3], keys[:3], labels[:3],
+                                store.__getitem__, pool)
+                for k in inf.stage_seconds:
+                    inf.stage_seconds[k] = 0.0
+                reset_launches()
+                t0 = time.time()
+                psnr, ssim = inf.infer_video("synthetic", keys, keys, labels,
+                                             store.__getitem__, pool)
+                wall = time.time() - t0
+                counts = dict(LAUNCHES)
+        finally:
+            inf.close()
+    if len(psnr) != n_frames or not all(np.isfinite(psnr)) \
+            or not all(np.isfinite(ssim)):
+        raise AssertionError(f"engine output not finite: {psnr} {ssim}")
+    return inf, counts, wall, psnr, ssim
+
+
+def check_against_cpu(cfg, inf):
+    """The card (kernels, bf16) against the CPU plain path (f32), same
+    weights, on one 3-frame window at 80x80 in both routings."""
+    import numpy as np
+    import torch
+    from speinet_tpu_torch.models.speinet import SPEINet
+
+    cpu = SPEINet.from_config(cfg.replace(compute_dtype="float32"))
+    cpu.load_state_dict({k: v.cpu() for k, v in inf.model.state_dict().items()})
+    cpu.eval()
+    frames = torch.from_numpy(np.stack(
+        [f.transpose(2, 0, 1) for f in synthetic_video(4, 80, 80, seed=2)])
+    ).float() / 255.0
+    results = {}
+    for routing in ("sharp", "self"):
+        outs = []
+        for model, dev in ((inf.model, "cuda"), (cpu, "cpu")):
+            fr = frames.to(dev)
+            m, n = model.encode_window_legs(fr[:3])
+            p1, p2, p3 = model.anchor_pyramid(fr[3:4])
+            o = model.restore_from_features(m[1:2], (n[0:1], n[2:3]), p1, p2, p3,
+                                            routing)
+            outs.append(o.float().cpu())
+        gpu_o, cpu_o = outs
+        if not torch.isfinite(gpu_o).all():
+            raise AssertionError("card output not finite")
+        mse = ((gpu_o.clamp(0, 1) - cpu_o.clamp(0, 1)) ** 2).mean().item()
+        psnr = 10 * np.log10(1.0 / max(mse, 1e-20))
+        results[routing] = dict(max_abs_diff=(gpu_o - cpu_o).abs().max().item(),
+                                psnr_vs_cpu_f32=psnr)
+        # bf16 through 36 Swin blocks and ~30 ResBlocks against f32: the
+        # outputs must agree to well above the rounding noise floor
+        if not psnr > 30.0:
+            raise AssertionError(f"{routing}: card vs CPU PSNR {psnr:.2f} dB")
+    return results
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    try:
+        from speinet_tpu_torch.config import Config, set_template
+        from speinet_tpu_torch.kernels import _lib
+    except ImportError as e:
+        print(f"chip_smoke: run from the root of a checkout ({e})", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    print(f"device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}",
+          flush=True)
+
+    t0 = time.time()
+    so = _lib.build()
+    _lib.library()
+    print(f"build: {time.time() - t0:.1f} s ({so.name})", flush=True)
+    ptxas = so.parent / f"ptxas_{so.stem}.log"
+    if ptxas.exists():
+        for line in ptxas.read_text().splitlines():
+            if "registers" in line or "spill" in line or line.startswith("=="):
+                print("  ptxas", line.strip())
+
+    checks = {}
+    for name, fn in (("roll2d", check_roll), ("conv2d", check_conv),
+                     ("banded_corr_argmax", check_corr), ("swin_block", check_swin)):
+        t1 = time.time()
+        checks[name] = fn(0)
+        for row in checks[name]:
+            print(f"{name} {json.dumps(row)}", flush=True)
+        print(f"{name}: checked in {time.time() - t1:.1f} s", flush=True)
+
+    cfg = set_template(Config(template="SPEINet")).replace(
+        compute_dtype="bfloat16", n_threads=4)
+    n_frames = 12
+    inf, counts, wall, psnr, ssim = run_main_path(cfg, n_frames, 720, 1280)
+    per_frame = {k: v / n_frames * 1e3 for k, v in inf.stage_seconds.items()}
+    print("main path: " + json.dumps(dict(
+        frames=n_frames, size="1280x720", batch_windows=2, wall_s=wall,
+        ms_per_frame=per_frame, launches=counts,
+        mean_psnr_vs_gt=float(sum(psnr) / len(psnr)))), flush=True)
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    print("card vs cpu: " + json.dumps(check_against_cpu(cfg, inf)), flush=True)
+
+    meta = {
+        "conv2d": ("speinet_tpu_torch/csrc/conv.cu",
+                   "speinet_tpu/ops/pallas_conv.py:93"),
+        "swin_block": ("speinet_tpu_torch/csrc/swin_block.cu",
+                       "speinet_tpu/ops/pallas_swin.py:420"),
+        "roll2d": ("speinet_tpu_torch/csrc/roll.cu",
+                   "speinet_tpu/ops/pallas_roll.py:115"),
+        "banded_corr_argmax": ("speinet_tpu_torch/csrc/corr_banded.cu",
+                               "speinet_tpu/ops/pallas_corr.py:526"),
+    }
+    kernels = []
+    for name, (src, replaces) in meta.items():
+        rows = checks[name]
+        lib = [r["library_ms"] for r in rows]
+        ops_ms = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=counts[name],
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
+            bound_ms=sum(r["bound_ms"] for r in rows),
+            bound_by="operations" if ops_ms * 2 >= sum(r["bound_ms"] for r in rows)
+            else "bytes",
+            library_ms=None if any(v is None for v in lib) else sum(lib)))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

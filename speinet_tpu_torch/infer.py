@@ -1,0 +1,360 @@
+"""Cached-video inference engine (port of `speinet_tpu/infer.py`'s
+`--cache_pyramids` engine; parity: inference_SPEINet.py).
+
+Per video: sharp labels, border-padded sliding 3-frame windows, the
+pre/sub sharp anchors with the >7-frame zero rule, per-frame encoder legs
+and anchor pyramids computed once and reused across windows, windows
+restored `batch_windows` at a time, PSNR (float64 host, border crop 4) and
+MATLAB SSIM, PNGs, and the reference's `inference_log` format.
+
+A chunk holding both sharp and self windows is split on the host into its
+sharp and its self windows, each restored with its own routing, as the
+reference engine does (model/speinet.py:150-168); per-sample eval-mode
+operations make that equal to one mixed call.
+
+Frame decoding is kept apart from the window logic: `infer_video` takes
+frame keys and a `load(key) -> HxWx3 uint8` function, so in-memory frames
+work as well as the PNG tree of the CLI.
+
+    python -m speinet_tpu_torch.infer --cache_pyramids --data_path <tree> \
+        [--model_path port_state_dict.pt]
+
+On the card the CLI computes in bfloat16 unless --compute_dtype says
+otherwise; with --device cpu it keeps the config's float32.
+
+Not in this slice (they raise NotImplementedError; see ROADMAP.md): the
+non-cached direct mode, --self_ensemble, --chop, and on-the-fly sharpness
+detection when the tree has no label/ directory.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from speinet_tpu_torch.config import Config
+from speinet_tpu_torch.data.indices import gene_seq, gene_seq_nsf
+from speinet_tpu_torch.models.speinet import SPEINet, init_weights
+from speinet_tpu_torch.ops.metrics import psnr_uint8_host, ssim_matlab
+
+
+def resolve_device(device) -> torch.device:
+    """The device to run on; CUDA unless the caller asked for the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "the plain PyTorch versions on the CPU")
+    return dev
+
+
+def _read_png(path: str) -> np.ndarray:
+    import imageio.v2 as imageio
+
+    return imageio.imread(path)
+
+
+def _frame_number(path: str) -> int:
+    return int(os.path.splitext(os.path.basename(path))[0].split(".")[-1])
+
+
+class TraverseLogger:
+    """Parity: inference_SPEINet.py:26-34."""
+
+    def __init__(self, result_dir: str, filename: str):
+        self.path = os.path.join(result_dir, filename)
+        self.f = open(self.path, "a" if os.path.exists(self.path) else "w")
+
+    def write_log(self, log: str) -> None:
+        print(log, flush=True)
+        self.f.write(log + "\n")
+        self.f.flush()
+
+    def close(self) -> None:
+        self.f.close()
+
+
+class Inference:
+    def __init__(self, cfg: Config, data_path: str, model_path: str,
+                 result_path: str, save_image: bool = True, border: bool = True,
+                 batch_windows: int = 1, cache_pyramids: bool = True,
+                 self_ensemble: bool = False, device="cuda", seed: int = 0):
+        if not cache_pyramids:
+            raise NotImplementedError(
+                "the direct (non-cached) engine is not ported yet; run with "
+                "cache_pyramids (see ROADMAP.md)")
+        if self_ensemble or cfg.chop:
+            raise NotImplementedError(
+                "--self_ensemble and --chop are not ported yet (ROADMAP.md)")
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and cfg.compute_dtype != "bfloat16":
+            raise ValueError("the port's CUDA kernels take bfloat16: run with "
+                             "compute_dtype='bfloat16' on the card")
+        self.cfg = cfg
+        self.n_seq = cfg.n_sequence
+        self.size_must_mode = cfg.size_must_mode
+        self.save_image = save_image
+        self.border = border
+        self.batch_windows = max(1, batch_windows)
+        self.result_path = result_path
+        self.input_path = os.path.join(data_path, "blur")
+        self.gt_path = os.path.join(data_path, "gt")
+        self.label_path = os.path.join(data_path, "label")
+        os.makedirs(result_path, exist_ok=True)
+
+        now = time.strftime("%Y-%m-%d %H:%M:%S", time.localtime())
+        self.logger = TraverseLogger(result_path, f"inference_log_{now}.txt")
+        self.logger.write_log(f"Inference - {now}")
+        dev_name = (torch.cuda.get_device_name(self.device)
+                    if self.device.type == "cuda" else "cpu")
+        for k, v in [("save_image", save_image), ("border", border),
+                     ("model_path", model_path), ("data_path", data_path),
+                     ("result_path", result_path), ("n_seq", self.n_seq),
+                     ("size_must_mode", self.size_must_mode),
+                     ("device", f"{self.device} ({dev_name})")]:
+            self.logger.write_log(f"{k}: {v}")
+
+        self.model = SPEINet.from_config(cfg)
+        if model_path:
+            self.model.load_state_dict(
+                torch.load(model_path, map_location="cpu", weights_only=True),
+                strict=True)
+        else:
+            init_weights(self.model, seed)     # random init (smoke / demo mode)
+        self.model.to(self.device).eval()
+        self.logger.write_log(f"Loading model from {model_path}")
+        # seconds spent in each engine stage, each ended by a device sync
+        self.stage_seconds = {"legs": 0.0, "anchor": 0.0, "restore": 0.0}
+        self.total_psnr: Dict[str, List[float]] = {}
+        self.total_ssim: Dict[str, List[float]] = {}
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _timed(self, stage: str, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        self._sync()
+        self.stage_seconds[stage] += time.time() - t0
+        return out
+
+    def infer_video(self, v: str, input_frames: Sequence[str],
+                    gt_frames: Sequence[str], labels,
+                    load: Callable[[str], np.ndarray], pool: ThreadPoolExecutor):
+        """Sliding-window inference with per-frame features and anchor
+        pyramids cached across windows. `input_frames` / `gt_frames` are
+        keys whose base names end in the frame number; `load(key)` returns
+        the HxWx3 uint8 frame. Returns the per-frame (psnr, ssim) lists."""
+        n_seq = self.n_seq
+        bw = self.batch_windows
+        dev = self.device
+        scale = self.cfg.rgb_range / 255.0
+        pre_lists, sub_lists = gene_seq_nsf(labels, n_seq=n_seq, border=self.border)
+        input_seqs, padded_inputs = gene_seq(input_frames, n_seq=n_seq,
+                                             border=self.border)
+        gt_seqs, _ = gene_seq(gt_frames, n_seq=n_seq, border=self.border)
+        n_win = len(input_seqs)
+        probe = load(padded_inputs[n_seq // 2])
+        nh = probe.shape[0] - probe.shape[0] % self.size_must_mode
+        nw = probe.shape[1] - probe.shape[1] % self.size_must_mode
+
+        def load_frame(key):
+            im = load(key)[:nh, :nw]
+            return im.transpose(2, 0, 1).astype(np.float32) * scale
+
+        last_pos = {p: i for i, p in enumerate(padded_inputs)}
+        # per window: (centre, (nb0, nb1), has_sharp, anchor key); the >7
+        # zero rule is measured from the LAST window frame (reference
+        # inference_SPEINet.py:385-388), not from the centre
+        metas = []
+        for w in range(n_win):
+            c_path = padded_inputs[w + n_seq // 2]
+            nb_paths = tuple(padded_inputs[w + i] for i in range(n_seq)
+                             if i != n_seq // 2)
+            ref_n = _frame_number(padded_inputs[w + n_seq - 1])
+            hs = abs(ref_n - _frame_number(padded_inputs[pre_lists[w][0]])) <= 7
+            sub_path = padded_inputs[sub_lists[w][n_seq - 1]]
+            akey = sub_path if abs(ref_n - _frame_number(sub_path)) <= 7 else "<ZERO>"
+            metas.append((c_path, nb_paths, hs, akey))
+
+        decoded, feat, anchors = {}, {}, {}
+
+        def to_dev(arr: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(arr).to(dev)
+
+        def ensure_feats(paths):
+            need = [p for p in dict.fromkeys(paths) if p not in feat]
+            for i in range(0, len(need), bw):
+                chunk = need[i:i + bw]
+                arr = np.stack([decoded[p].result() for p in chunk])
+                m, n = self._timed("legs", self.model.encode_window_legs, to_dev(arr))
+                for k, p in enumerate(chunk):
+                    feat[p] = (m[k:k + 1], n[k:k + 1])
+
+        def ensure_anchor(key):
+            if key in anchors:
+                return
+            if key == "<ZERO>":
+                arr = np.zeros((1, 3, nh, nw), np.float32)
+            else:
+                arr = decoded[key].result()[None]
+            anchors[key] = self._timed("anchor", self.model.anchor_pyramid,
+                                       to_dev(arr))
+
+        video_psnr, video_ssim = [], []
+        for s in range(0, n_win, bw):
+            start = time.time()
+            wins = list(range(s, min(s + bw, n_win)))
+            for w in range(s, min(s + 2 * bw, n_win)):   # this chunk and the next
+                for p in (metas[w][0],) + metas[w][1] + (metas[w][3],):
+                    if p != "<ZERO>" and p not in decoded and p not in feat:
+                        decoded[p] = pool.submit(load_frame, p)
+            gts = [pool.submit(lambda k: load(k)[:nh, :nw], gt_seqs[w][n_seq // 2])
+                   for w in wins]
+            chunk_paths = [p for w in wins for p in (metas[w][0],) + metas[w][1]]
+            for p in dict.fromkeys(chunk_paths):
+                if p not in feat:
+                    decoded[p].result()
+            t_pre = time.time()
+            ensure_feats(chunk_paths)
+            for w in wins:
+                ensure_anchor(metas[w][3])
+            out = torch.empty((len(wins), 3, nh, nw), dtype=torch.float32,
+                              device=dev)
+            for routing, want in (("sharp", True), ("self", False)):
+                ks = [k for k, w in enumerate(wins) if metas[w][2] == want]
+                if not ks:
+                    continue
+                sel = [wins[k] for k in ks]
+                cat = lambda xs: torch.cat(xs, dim=0)
+                res = self._timed(
+                    "restore", self.model.restore_from_features,
+                    cat([feat[metas[i][0]][0] for i in sel]),
+                    (cat([feat[metas[i][1][0]][1] for i in sel]),
+                     cat([feat[metas[i][1][1]][1] for i in sel])),
+                    cat([anchors[metas[i][3]][0] for i in sel]),
+                    cat([anchors[metas[i][3]][1] for i in sel]),
+                    cat([anchors[metas[i][3]][2] for i in sel]), routing)
+                out[ks] = res
+            imgs_dev = torch.clamp(torch.round(out * (255.0 / self.cfg.rgb_range)),
+                                   0, 255).to(torch.uint8).permute(0, 2, 3, 1)
+            imgs = imgs_dev.cpu().numpy()
+            t_fwd = time.time()
+            for k, w in enumerate(wins):
+                filename = os.path.basename(metas[w][0]).split(".")[0]
+                img, gt = imgs[k], gts[k].result()
+                psnr = psnr_uint8_host(img, gt, crop_border=4)
+                ssim = float(ssim_matlab(to_dev(np.ascontiguousarray(gt)),
+                                         imgs_dev[k]))
+                video_psnr.append(psnr)
+                video_ssim.append(ssim)
+                if self.save_image:
+                    import imageio.v2 as imageio
+
+                    os.makedirs(os.path.join(self.result_path, v), exist_ok=True)
+                    imageio.imwrite(os.path.join(self.result_path, v,
+                                                 f"{filename}.png"), img)
+                t_post = time.time()
+                nb = len(wins)
+                self.logger.write_log(
+                    f"> {v}-{filename} PSNR={psnr:.5}, SSIM={ssim:.4} "
+                    f"pre_time:{(t_pre - start) / nb:.3}s, "
+                    f"forward_time:{(t_fwd - t_pre) / nb:.3}s, "
+                    f"post_time:{(t_post - t_fwd) / nb:.3}s, "
+                    f"total_time:{(t_post - start) / nb:.3}s")
+            # evict what no remaining window needs
+            horizon = s + bw
+            for p in [p for p, i in last_pos.items() if i < horizon]:
+                feat.pop(p, None)
+                decoded.pop(p, None)
+            keep = {metas[w][3] for w in range(horizon, n_win)} | {"<ZERO>"}
+            for p in [p for p in anchors if p not in keep]:
+                anchors.pop(p)
+        self.total_psnr[v] = video_psnr
+        self.total_ssim[v] = video_ssim
+        return video_psnr, video_ssim
+
+    def _labels_for_video(self, v: str) -> np.ndarray:
+        path = os.path.join(self.label_path, v + ".npy")
+        if not os.path.exists(path):
+            raise FileNotFoundError(
+                f"{path} is missing: the sharpness detector that labels "
+                f"frames on the fly is a later slice of the port (ROADMAP.md); "
+                f"provide label/<video>.npy")
+        return np.load(path)
+
+    def infer(self):
+        """Every video of the PNG tree; returns (mean PSNR, mean SSIM)."""
+        videos = sorted(os.listdir(self.input_path))
+        with ThreadPoolExecutor(max_workers=self.cfg.n_threads) as pool:
+            for v in videos:
+                input_frames = sorted(glob.glob(os.path.join(self.input_path, v, "*")))
+                gt_frames = sorted(glob.glob(os.path.join(self.gt_path, v, "*")))
+                self.infer_video(v, input_frames, gt_frames,
+                                 self._labels_for_video(v), _read_png, pool)
+        sum_psnr = sum_ssim = 0.0
+        n_img = 0
+        for k in self.total_psnr:
+            self.logger.write_log(
+                f"# Video:{k} AVG-PSNR={np.mean(self.total_psnr[k]):.5}, "
+                f"AVG-SSIM={np.mean(self.total_ssim[k]):.4}")
+            sum_psnr += sum(self.total_psnr[k])
+            sum_ssim += sum(self.total_ssim[k])
+            n_img += len(self.total_psnr[k])
+        if n_img:
+            self.logger.write_log(f"# Total AVG-PSNR={sum_psnr / n_img:.5}, "
+                                  f"AVG-SSIM={sum_ssim / n_img:.4}")
+        return (sum_psnr / n_img if n_img else 0.0,
+                sum_ssim / n_img if n_img else 0.0)
+
+    def close(self) -> None:
+        self.logger.close()
+
+
+def main(argv=None):
+    import sys
+
+    from speinet_tpu_torch.config import parse_args as parse_config_args
+
+    p = argparse.ArgumentParser(
+        description="SPEINet inference on PyTorch / CUDA (cached-video engine)",
+        epilog="Any Config field (--template, --compute_dtype, ...) is also "
+               "accepted and overlaid on the template.")
+    p.add_argument("--save_image", type=lambda s: s.lower() != "false", default=True)
+    p.add_argument("--chop", action="store_true")
+    p.add_argument("--self_ensemble", action="store_true")
+    p.add_argument("--data_path", type=str, default="./dataset/test")
+    p.add_argument("--model_path", type=str, default="",
+                   help="a port state_dict (.pt); empty = seeded random init")
+    p.add_argument("--result_path", type=str, default="./infer_results")
+    p.add_argument("--batch_windows", type=int, default=1)
+    p.add_argument("--cache_pyramids", action="store_true",
+                   help="reuse per-frame encoder features across windows "
+                        "(the only engine ported so far)")
+    p.add_argument("--device", type=str, default="cuda")
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args, config_argv = p.parse_known_args(argv)
+    cfg = parse_config_args(config_argv).replace(chop=args.chop)
+    if torch.device(args.device).type == "cuda" and not any(
+            a.split("=")[0] == "--compute_dtype" for a in config_argv):
+        cfg = cfg.replace(compute_dtype="bfloat16")   # what the kernels take
+    inf = Inference(cfg, args.data_path, args.model_path, args.result_path,
+                    save_image=args.save_image, border=cfg.border,
+                    batch_windows=args.batch_windows,
+                    cache_pyramids=args.cache_pyramids,
+                    self_ensemble=args.self_ensemble, device=args.device)
+    try:
+        inf.infer()
+    finally:
+        inf.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,84 @@
+"""K4 wrapper: banded 3x3-patch correlation max / argmax
+(`csrc/corr_banded.cu`).
+
+Replaces `speinet_tpu/ops/pallas_corr.py::banded_corr_argmax`. A CPU tensor
+takes the plain version; a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from speinet_tpu_torch.kernels import _lib
+
+
+def _check_args(lr_map: torch.Tensor, ref_map: torch.Tensor,
+                inv_ref: torch.Tensor) -> None:
+    if lr_map.ndim != 4 or ref_map.ndim != 4:
+        raise ValueError("banded_corr_argmax takes [B, H, W, C] maps")
+    b, _, _, c = lr_map.shape
+    if ref_map.shape[0] != b or ref_map.shape[3] != c:
+        raise ValueError(f"reference {tuple(ref_map.shape)} does not match "
+                         f"query {tuple(lr_map.shape)}")
+    if inv_ref.shape != (b, ref_map.shape[1] * ref_map.shape[2]):
+        raise ValueError(f"inv_ref {tuple(inv_ref.shape)} should be "
+                         f"[B, Hr*Wr]")
+    for name, t in (("lr_map", lr_map), ("ref_map", ref_map),
+                    ("inv_ref", inv_ref)):
+        if not t.is_contiguous():
+            raise ValueError(f"banded_corr_argmax: {name} must be contiguous")
+
+
+CHUNK = 2048   # reference positions per [chunk, L] product of the plain version
+
+
+def banded_corr_argmax_plain(lr_map: torch.Tensor, ref_map: torch.Tensor,
+                             inv_ref: torch.Tensor):
+    """S[p] = max_q inv[q] * <unfold(F)[:, p], unfold(G)[:, q]> and its first
+    argmax, with the [L, Lr] product taken CHUNK reference positions at a
+    time in float32."""
+    b, h, w, c = lr_map.shape
+    lu = F.unfold(lr_map.permute(0, 3, 1, 2).float(), 3, padding=1)   # [B, D, L]
+    ru = F.unfold(ref_map.permute(0, 3, 1, 2).float(), 3, padding=1)  # [B, D, Lr]
+    inv = inv_ref.float()
+    lr_len = ru.shape[2]
+    best = torch.full((b, h * w), float("-inf"), device=lr_map.device)
+    best_idx = torch.zeros((b, h * w), dtype=torch.int64, device=lr_map.device)
+    for q0 in range(0, lr_len, CHUNK):
+        q1 = min(q0 + CHUNK, lr_len)
+        r = torch.bmm(ru[:, :, q0:q1].transpose(1, 2), lu)   # [B, chunk, L]
+        r = r * inv[:, q0:q1, None]
+        cmax, carg = r.max(dim=1)
+        upd = cmax > best
+        best = torch.where(upd, cmax, best)
+        best_idx = torch.where(upd, carg + q0, best_idx)
+    return best, best_idx.to(torch.int32)
+
+
+def banded_corr_argmax(lr_map: torch.Tensor, ref_map: torch.Tensor,
+                       inv_ref: torch.Tensor):
+    """lr_map [B, H, W, C], ref_map [B, Hr, Wr, C], inv_ref [B, Hr*Wr] f32
+    -> (S [B, H*W] f32, idx [B, H*W] int32 row-major over Hr x Wr)."""
+    _check_args(lr_map, ref_map, inv_ref)
+    if _lib.dispatch_device(lr_map, "banded_corr_argmax") == "cpu":
+        return banded_corr_argmax_plain(lr_map, ref_map, inv_ref)
+    dev = lr_map.device
+    _lib.require_cuda_tensor(lr_map, "lr_map", torch.bfloat16, dev)
+    _lib.require_cuda_tensor(ref_map, "ref_map", torch.bfloat16, dev)
+    _lib.require_cuda_tensor(inv_ref, "inv_ref", torch.float32, dev)
+    b, h, w, c = lr_map.shape
+    hr, wr = ref_map.shape[1:3]
+    if c % 16 or c > 256:
+        raise ValueError(f"banded_corr_argmax kernel takes a multiple of 16 "
+                         f"channels up to 256, got {c}")
+    s = torch.empty((b, h * w), dtype=torch.float32, device=dev)
+    idx = torch.empty((b, h * w), dtype=torch.int32, device=dev)
+    lib = _lib.library()
+    _lib.check(lib.speinet_banded_corr(lr_map.data_ptr(), ref_map.data_ptr(),
+                                       inv_ref.data_ptr(), s.data_ptr(),
+                                       idx.data_ptr(), b, h, w, hr, wr, c,
+                                       _lib.stream_ptr(lr_map)),
+               "banded_corr_argmax")
+    _lib.LAUNCHES["banded_corr_argmax"] += 1
+    return s, idx

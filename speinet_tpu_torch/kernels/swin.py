@@ -1,0 +1,211 @@
+"""K2 wrapper: one whole cross-attention Swin block (`csrc/swin_block.cu`).
+
+Replaces `speinet_tpu/ops/pallas_swin.py::fused_swin_block`. x (K/V
+stream) and y (Q stream) arrive rolled and padded; the output is the whole
+block (x + attention + MLP), still rolled and padded. A CPU tensor takes
+the plain version; a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from speinet_tpu_torch.kernels import _lib
+
+
+class SwinBlockWeights(NamedTuple):
+    """One block's parameters: matrices in torch Linear layout [out, in]
+    and in the compute dtype, everything else float32."""
+
+    ln1_w: torch.Tensor
+    ln1_b: torch.Tensor
+    wkv: torch.Tensor       # [2C, C]
+    bkv: torch.Tensor
+    wq: torch.Tensor        # [C, C]
+    bq: torch.Tensor
+    wp: torch.Tensor        # [C, C]
+    bp: torch.Tensor
+    relbias: torch.Tensor   # [heads, N, N]
+    ln2_w: torch.Tensor
+    ln2_b: torch.Tensor
+    w1: torch.Tensor        # [hidden, C]
+    b1: torch.Tensor
+    w2: torch.Tensor        # [C, hidden]
+    b2: torch.Tensor
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis in float32 with the one-pass clamped
+    variance of the JAX package; returns float32."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
+    return (xf - mu) * torch.rsqrt(var + eps) * w + b
+
+
+def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
+    """[B, H, W, C] -> [B*nW, ws*ws, C]."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // ws, ws, w // ws, ws, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, ws * ws, c)
+
+
+def window_reverse(win: torch.Tensor, ws: int, h: int, w: int) -> torch.Tensor:
+    """[B*nW, ws*ws, C] -> [B, H, W, C]."""
+    c = win.shape[-1]
+    b = win.shape[0] // (h * w // ws // ws)
+    x = win.reshape(b, h // ws, w // ws, ws, ws, c)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
+
+
+@functools.lru_cache(maxsize=None)
+def shift_attn_mask(h: int, w: int, window_size: int, shift_size: int) -> np.ndarray:
+    """SW-MSA mask [nW, N, N] of 0 / -100 (parity: swinir.py:215-236)."""
+    img_mask = np.zeros((h, w))
+    slices = (slice(0, -window_size), slice(-window_size, -shift_size),
+              slice(-shift_size, None))
+    cnt = 0
+    for hs in slices:
+        for wsl in slices:
+            img_mask[hs, wsl] = cnt
+            cnt += 1
+    m = img_mask.reshape(h // window_size, window_size, w // window_size,
+                         window_size)
+    m = m.transpose(0, 2, 1, 3).reshape(-1, window_size * window_size)
+    diff = m[:, None, :] - m[:, :, None]
+    return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def window_mask(hp: int, wp: int, ws: int, shift: int, pad_h: int,
+                pad_w: int) -> np.ndarray | None:
+    """Shift mask plus the pad mask of keys that are padding after the roll
+    ([nW, N, N], -100 per violated rule), or None when neither applies."""
+    mask = shift_attn_mask(hp, wp, ws, shift) if shift > 0 else None
+    if pad_h or pad_w:
+        pad = np.zeros((hp, wp), np.float32)
+        pad[hp - pad_h:, :] = 1.0
+        pad[:, wp - pad_w:] = 1.0
+        if shift > 0:
+            pad = np.roll(pad, (-shift, -shift), axis=(0, 1))
+        pm = pad.reshape(hp // ws, ws, wp // ws, ws).transpose(0, 2, 1, 3)
+        pm = pm.reshape(-1, ws * ws)
+        pmask = np.where(pm[:, None, :] > 0, -100.0, 0.0).astype(np.float32)
+        mask = pmask if mask is None else mask + pmask
+    return mask
+
+
+def swin_block_plain(x: torch.Tensor, y: torch.Tensor, wts: SwinBlockWeights,
+                     ws: int, shift: int, pad_h: int, pad_w: int,
+                     heads: int) -> torch.Tensor:
+    """The kernel's arithmetic in float32, rounding to x.dtype where the
+    kernel stores: LN'd rows, Q/K/V, softmax probabilities, the attention
+    output, LN2 and the GELU output; residual stream in f32."""
+    b, hp, wp, c = x.shape
+    dt = x.dtype
+    n = ws * ws
+    hd = c // heads
+
+    def rnd(t):
+        return t.to(dt).float()
+
+    xw_raw = window_partition(x, ws).float()
+    yw_raw = window_partition(y, ws).float()
+    bw = xw_raw.shape[0]
+    xw = rnd(layer_norm(xw_raw, wts.ln1_w, wts.ln1_b))
+    yw = rnd(layer_norm(yw_raw, wts.ln1_w, wts.ln1_b))
+    kv = rnd(xw @ wts.wkv.float().T + wts.bkv)
+    q = rnd((yw @ wts.wq.float().T + wts.bq) * (hd ** -0.5))
+    k, v = kv[..., :c], kv[..., c:]
+    q = q.reshape(bw, n, heads, hd).transpose(1, 2)
+    k = k.reshape(bw, n, heads, hd).transpose(1, 2)
+    v = v.reshape(bw, n, heads, hd).transpose(1, 2)
+    s = q @ k.transpose(-1, -2) + wts.relbias[None]
+    mask = window_mask(hp, wp, ws, shift, pad_h, pad_w)
+    if mask is not None:
+        nw = mask.shape[0]
+        s = (s.reshape(bw // nw, nw, heads, n, n)
+             + torch.from_numpy(mask).to(s.device)[None, :, None]).reshape(
+                 bw, heads, n, n)
+    p = rnd(torch.softmax(s, dim=-1))
+    o = rnd((p @ v).transpose(1, 2).reshape(bw, n, c))
+    x2 = xw_raw + (o @ wts.wp.float().T + wts.bp)
+    xn2 = rnd(layer_norm(x2, wts.ln2_w, wts.ln2_b))
+    hmid = rnd(F.gelu(xn2 @ wts.w1.float().T + wts.b1))
+    out = (x2 + (hmid @ wts.w2.float().T + wts.b2)).to(dt)
+    return window_reverse(out, ws, hp, wp)
+
+
+def block_errors(out: torch.Tensor, ref: torch.Tensor, x: torch.Tensor) -> dict:
+    """How far a block output `out` lies from the plain version's `ref`,
+    measured against the block's update (ref - x), which a relative error of
+    the output would hide under the residual x. Both round one float32
+    residual sum to bf16, so they may differ by one bf16 step of the output
+    where that rounding flips; `max_excess` is what lies beyond that step."""
+    o, r = out.float(), ref.float()
+    err = (o - r).abs()
+    mag = torch.maximum(o.abs(), r.abs()).clamp(min=2.0 ** -126)
+    step = torch.exp2(torch.floor(torch.log2(mag)) - 7)     # bf16 spacing
+    upd = (r - x.float()).abs()
+    return dict(max_abs_err=err.max().item(), mean_abs_err=err.mean().item(),
+                max_excess=(err - step).clamp(min=0).max().item(),
+                max_update=upd.max().item(), mean_update=upd.mean().item())
+
+
+def block_errors_pass(e: dict) -> bool:
+    """The tolerance the kernel is held to against `swin_block_plain`: beyond
+    the output's bf16 step, at most 2^-7 of the largest update, and a mean
+    error of at most 2^-10 of the mean update. Another f32 summation order
+    stays far inside both; a dropped relative-position bias or shift mask
+    does not (tests/test_torch_kernels.py shows both on the CPU)."""
+    return (e["max_excess"] <= 2.0 ** -7 * e["max_update"]
+            and e["mean_abs_err"] <= 2.0 ** -10 * e["mean_update"])
+
+
+def swin_block(x: torch.Tensor, y: torch.Tensor, wts: SwinBlockWeights,
+               ws: int, shift: int, pad_h: int, pad_w: int,
+               heads: int) -> torch.Tensor:
+    """x, y [B, Hp, Wp, C] raw (un-normalized), rolled and padded ->
+    the block output [B, Hp, Wp, C], rolled and padded."""
+    if x.shape != y.shape or x.ndim != 4:
+        raise ValueError(f"swin_block takes two equal [B, Hp, Wp, C] images, "
+                         f"got {tuple(x.shape)} and {tuple(y.shape)}")
+    b, hp, wp, c = x.shape
+    if hp % ws or wp % ws or c % heads:
+        raise ValueError(f"[{hp}, {wp}] is not a multiple of window {ws} or "
+                         f"{c} channels do not split over {heads} heads")
+    if not (x.is_contiguous() and y.is_contiguous()):
+        raise ValueError("swin_block: x and y must be contiguous")
+    if _lib.dispatch_device(x, "swin_block") == "cpu":
+        return swin_block_plain(x, y, wts, ws, shift, pad_h, pad_w, heads)
+    dev = x.device
+    hidden = wts.w1.shape[0]
+    if ws != 5 or c // heads != 32 or c > 256 or hidden % 64:
+        raise ValueError(f"swin_block kernel takes window 5, head dim 32, "
+                         f"C <= 256 and a hidden width divisible by 64; got "
+                         f"window {ws}, C {c}, {heads} heads, hidden {hidden}")
+    _lib.require_cuda_tensor(x, "x", torch.bfloat16, dev)
+    _lib.require_cuda_tensor(y, "y", torch.bfloat16, dev)
+    for name in ("wkv", "wq", "wp", "w1", "w2"):
+        _lib.require_cuda_tensor(getattr(wts, name), name, torch.bfloat16, dev)
+    for name in ("ln1_w", "ln1_b", "bkv", "bq", "bp", "relbias", "ln2_w",
+                 "ln2_b", "b1", "b2"):
+        _lib.require_cuda_tensor(getattr(wts, name), name, torch.float32, dev)
+    out = torch.empty_like(x)
+    ptr = lambda t: t.data_ptr()
+    lib = _lib.library()
+    _lib.check(lib.speinet_swin_block(
+        ptr(x), ptr(y), ptr(out), ptr(wts.ln1_w), ptr(wts.ln1_b), ptr(wts.wkv),
+        ptr(wts.bkv), ptr(wts.wq), ptr(wts.bq), ptr(wts.wp), ptr(wts.bp),
+        ptr(wts.relbias), ptr(wts.ln2_w), ptr(wts.ln2_b), ptr(wts.w1),
+        ptr(wts.b1), ptr(wts.w2), ptr(wts.b2), b, hp, wp, c, hidden, heads,
+        ws, shift, hp - pad_h, wp - pad_w, float((c // heads) ** -0.5),
+        _lib.stream_ptr(x)), "swin_block")
+    _lib.LAUNCHES["swin_block"] += 1
+    return out

@@ -1,0 +1,195 @@
+"""SPEINet's cached-video inference path (port of
+`speinet_tpu/models/speinet.py`; parity: model/speinet.py).
+
+Input frames are [F, 3, H, W] floats in [0, rgb_range]; feature maps are
+NHWC in the compute dtype; parameters are float32 and are cast at use.
+The three methods split the forward of one window so a video engine can
+reuse per-frame work across sliding windows:
+    encode_window_legs   enc(f) + enc(RL5(f)) and enc(f) + enc(RL1(f))
+    anchor_pyramid       the sharp anchor's encoder pyramid
+    restore_from_features  Swin fusion of both neighbours, fusion conv,
+                         search + transfer, decoder
+Parameter names follow the original PyTorch model (recons_net.*, swin.*,
+conv_lv1..3, fusion, search*, SelfTransfer.*), including the defined but
+unused `search23`.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+
+from speinet_tpu_torch.config import Config
+from speinet_tpu_torch.models.blocks import conv1x1, conv_k1
+from speinet_tpu_torch.models.recons_video import ReconsVideo
+from speinet_tpu_torch.models.search_transfer import SelfTransfer, transfer
+from speinet_tpu_torch.models.swinir import SwinIRCross
+from speinet_tpu_torch.ops.filters import box_kernel, richardson_lucy
+from speinet_tpu_torch.ops.resize import bicubic_upsample_nhwc
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, seed: int) -> nn.Module:
+    """Seeded random init with the JAX package's distributions: torch's
+    default U(+-1/sqrt(fan_in)) for conv / linear kernels and biases (fan_in
+    over the input channels for transposed convs too), truncated normal
+    (std 0.02, zero bias) for the Swin linears and relative-position tables,
+    and identity LayerNorm / BatchNorm."""
+    g = torch.Generator().manual_seed(seed)
+
+    def uniform_(t, bound):
+        t.copy_((torch.rand(t.shape, generator=g) * 2 - 1) * bound)
+
+    def trunc_normal_(t):
+        # N(0, 1) clipped at +-2 has std 0.8796; rescale to 0.02
+        t.copy_(torch.randn(t.shape, generator=g).clamp_(-2, 2) * (0.02 / 0.8796))
+
+    for name, mod in model.named_modules():
+        if isinstance(mod, nn.Linear) and ".residual_group." in f".{name}":
+            trunc_normal_(mod.weight)
+            mod.bias.zero_()
+        elif isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+            w = mod.weight
+            fan_in = w[0].numel() if not isinstance(mod, nn.ConvTranspose2d) \
+                else w.shape[0] * w.shape[2] * w.shape[3]
+            uniform_(w, fan_in ** -0.5)
+            if mod.bias is not None:
+                uniform_(mod.bias, fan_in ** -0.5)
+        elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm2d)):
+            mod.reset_parameters()
+        elif hasattr(mod, "relative_position_bias_table"):
+            trunc_normal_(mod.relative_position_bias_table)
+    return model
+
+
+class SPEINet(nn.Module):
+    """Parity: model/speinet.py:28-168 (cached-video methods only)."""
+
+    def __init__(self, n_sequence: int = 3, n_feat: int = 32,
+                 n_resblock: int = 3, out_channels: int = 3,
+                 embed_dim: int = 256,
+                 depths: Sequence[int] = (6, 6, 6, 6, 6, 6),
+                 num_heads: Sequence[int] = (8, 8, 8, 8, 8, 8),
+                 window_size: int = 5, mlp_ratio: float = 2.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if n_sequence != 3:
+            raise NotImplementedError("the cached engine takes 3-frame windows")
+        f = n_feat
+        self.dtype = dtype
+        self.recons_net = ReconsVideo(f, n_resblock, out_channels)
+        self.swin = SwinIRCross(4 * f, embed_dim, depths, num_heads,
+                                window_size, mlp_ratio)
+        self.conv_lv1 = nn.Conv2d(2 * f, f, 1)
+        self.conv_lv2 = nn.Conv2d(4 * f, 2 * f, 1)
+        self.conv_lv3 = nn.Conv2d(8 * f, 4 * f, 1)
+        self.fusion = nn.Conv2d(12 * f, 4 * f, 1)
+        self.search3 = nn.Conv2d(2 * f, 2 * f, 3, padding=1)
+        self.search2 = nn.Conv2d(4 * f, 2 * f, 1)
+        self.search1 = nn.Conv2d(4 * f, 2 * f, 1)
+        self.search43 = nn.Conv2d(f, f, 3, padding=1)
+        self.search33 = nn.Conv2d(2 * f, f, 3, padding=1)
+        self.search23 = nn.Conv2d(2 * f, f, 1)     # defined, unused (parity)
+        self.search13 = nn.Conv2d(2 * f, f, 1)
+        self.SelfTransfer = SelfTransfer(f)
+
+    @classmethod
+    def from_config(cls, cfg: Config) -> "SPEINet":
+        if cfg.compute_dtype not in _DTYPES:
+            raise ValueError(f"compute_dtype {cfg.compute_dtype!r}")
+        return cls(n_sequence=cfg.n_sequence, n_feat=cfg.n_feat,
+                   n_resblock=cfg.n_resblock, out_channels=cfg.n_colors,
+                   embed_dim=cfg.embed_dim, depths=tuple(cfg.depths),
+                   num_heads=tuple(cfg.num_heads), window_size=cfg.window_size,
+                   mlp_ratio=cfg.mlp_ratio, dtype=_DTYPES[cfg.compute_dtype])
+
+    def _fast(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        """3x3 refinement conv + ReLU through K1, bias rounded to the compute
+        dtype first (FastConv, speinet_tpu/models/blocks.py:291-296)."""
+        return conv_k1(x, conv, True, self.dtype, round_bias=True)
+
+    def _c1(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        return conv1x1(x, conv, self.dtype)
+
+    def _fuse(self, f_mid: torch.Tensor, neighbor_feats) -> torch.Tensor:
+        """Both neighbours through one batched swin call (same K/V stream)."""
+        b = f_mid.shape[0]
+        x_in = torch.cat([f_mid] * len(neighbor_feats), dim=0)
+        y_in = torch.cat(list(neighbor_feats), dim=0)
+        f_trans = self.swin(x_in, y_in, self.dtype)
+        parts = [f_mid.to(self.dtype)] + [f_trans[k * b:(k + 1) * b]
+                                          for k in range(len(neighbor_feats))]
+        return torch.cat(parts, dim=-1)
+
+    def _decode(self, f_fusion, weight_s, t_lv3, t_lv2, t_lv1):
+        """Decoder with S-weighted texture injection and multi-scale cross
+        refinement (parity: speinet.py:92-120)."""
+        r, dt = self.recons_net, self.dtype
+        up = bicubic_upsample_nhwc
+        sharp_v3 = self._c1(self.conv_lv3, torch.cat([f_fusion, t_lv3], -1)) * weight_s
+        f_lv3 = f_fusion + sharp_v3
+        decoder_v2 = r.decode_second(f_lv3, dt)
+        w2 = up(weight_s, 2).to(dt)
+        f_v2 = self._c1(self.conv_lv2, torch.cat([decoder_v2, t_lv2], -1)) * w2
+        f_lv2 = decoder_v2 + f_v2
+
+        search_1 = torch.relu(self._c1(self.search1, up(f_lv3, 2)))
+        search_2 = self._fast(self.search3, f_lv2)
+        search_11 = torch.relu(self._c1(self.search2,
+                                        torch.cat([decoder_v2, search_1], -1)))
+        search_22 = torch.relu(self._c1(self.search2,
+                                        torch.cat([f_lv2, search_2], -1)))
+        f_v3 = decoder_v2 + search_11
+        f_lv2 = f_lv2 + search_22
+
+        decoder_v1 = r.decode_first(f_lv2, dt)
+        w4 = up(weight_s, 4).to(dt)
+        f_v1 = self._c1(self.conv_lv1, torch.cat([decoder_v1, t_lv1], -1)) * w4
+        f_lv1 = decoder_v1 + f_v1
+
+        search_13 = torch.relu(self._c1(self.search13, up(f_v3, 2)))
+        search_23 = self._fast(self.search33, up(f_lv2, 2))
+        search_33 = self._fast(self.search43, f_lv1)
+        search_113 = self._fast(self.search33, torch.cat([search_13, search_23], -1))
+        search_223 = self._fast(self.search33, torch.cat([search_13, search_33], -1))
+        search_323 = self._fast(self.search33, torch.cat([search_23, search_33], -1))
+        f_lv1 = f_lv1 + search_113 + search_223 + search_323
+        return r.out_block(f_lv1, dt)
+
+    @torch.no_grad()
+    def encode_window_legs(self, frames: torch.Tensor):
+        """frames [F, 3, H, W] -> (M, N) lv3 features:
+        M = enc(f) + enc(RL5(f)) (centre leg), N = enc(f) + enc(RL1(f))."""
+        dt = self.dtype
+        nhwc = lambda t: t.permute(0, 2, 3, 1).to(dt)
+        f32 = frames.float()
+        kernel = box_kernel(5, device=frames.device)
+        rl1 = richardson_lucy(f32, kernel, 1, 0.01, box_size=5)
+        rl5 = richardson_lucy(f32, kernel, 5, 0.01, box_size=5)
+        stack = torch.cat([nhwc(frames), nhwc(rl1), nhwc(rl5)], dim=0).contiguous()
+        _, _, lv3 = self.recons_net.encode_pyramid(stack, dt)
+        n = frames.shape[0]
+        e, e1, e5 = lv3[:n], lv3[n:2 * n], lv3[2 * n:]
+        return e + e5, e + e1
+
+    @torch.no_grad()
+    def anchor_pyramid(self, frames: torch.Tensor):
+        """Sharp-anchor pyramid [F, 3, H, W] -> (lv1, lv2, lv3) NHWC."""
+        nhwc = frames.permute(0, 2, 3, 1).to(self.dtype).contiguous()
+        return self.recons_net.encode_pyramid(nhwc, self.dtype)
+
+    @torch.no_grad()
+    def restore_from_features(self, f_mid, neighbor_feats, sharp_lv1, sharp_lv2,
+                              sharp_lv3, routing: str) -> torch.Tensor:
+        """Fusion + transfer + decode for a batch whose routing the host
+        knows ('sharp' or 'self'). Returns [B, 3, H, W] float32."""
+        f_fusion = self._fuse(f_mid, neighbor_feats)
+        f_fusion = self._c1(self.fusion, f_fusion)
+        weight_s, t3, t2, t1 = transfer(self.SelfTransfer, f_fusion, sharp_lv1,
+                                        sharp_lv2, sharp_lv3, routing, self.dtype)
+        out = self._decode(f_fusion, weight_s.to(self.dtype), t3, t2, t1)
+        return out.permute(0, 3, 1, 2).float()

@@ -1,0 +1,66 @@
+"""Inference metrics (port of `speinet_tpu/ops/metrics.py`).
+
+- `psnr_uint8_host`: float64 host PSNR on uint8 images after a 4-pixel
+  border crop (inference_SPEINet.py:484-500), numpy as in the JAX package.
+- `ssim_matlab`: MATLAB-equivalent SSIM, 11x11 Gaussian (sigma 1.5), valid
+  region, C1/C2 at the 255 range, the map of all channels averaged
+  (inference_SPEINet.py:502-543). Runs on the tensors' device.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def psnr_uint8_host(img1: np.ndarray, img2: np.ndarray,
+                    crop_border: int = 4) -> float:
+    """Bit-exact float64 host PSNR for the inference logs."""
+    a = img1[crop_border:-crop_border, crop_border:-crop_border].astype(np.float64)
+    b = img2[crop_border:-crop_border, crop_border:-crop_border].astype(np.float64)
+    mse = np.mean((a - b) ** 2)
+    if mse == 0:
+        return float("inf")
+    return float(20.0 * np.log10(255.0 / np.sqrt(mse)))
+
+
+def _gaussian_window(ksize: int = 11, sigma: float = 1.5) -> np.ndarray:
+    """cv2.getGaussianKernel-equivalent 1-D kernel."""
+    x = np.arange(ksize, dtype=np.float64) - (ksize - 1) / 2.0
+    g = np.exp(-(x ** 2) / (2.0 * sigma ** 2))
+    return g / g.sum()
+
+
+def _filter_valid(img: torch.Tensor, win1d) -> torch.Tensor:
+    """Separable 2-D correlation, valid region only. img: [H, W, C].
+    Written as shifted float32 adds, so no convolution library (and on the
+    card no TF32) touches the metric."""
+    k = len(win1d)
+    h, w = img.shape[0] - k + 1, img.shape[1] - k + 1
+    x = sum(float(win1d[i]) * img[i:i + h] for i in range(k))
+    return sum(float(win1d[j]) * x[:, j:j + w] for j in range(k))
+
+
+def ssim_matlab(img1: torch.Tensor, img2: torch.Tensor,
+                crop_border: int = 4) -> torch.Tensor:
+    """MATLAB-style SSIM on [0, 255] HWC images (uint8 or float)."""
+    if crop_border:
+        img1 = img1[crop_border:-crop_border, crop_border:-crop_border]
+        img2 = img2[crop_border:-crop_border, crop_border:-crop_border]
+    if img1.ndim == 2:
+        img1 = img1[..., None]
+        img2 = img2[..., None]
+    c1 = (0.01 * 255) ** 2
+    c2 = (0.03 * 255) ** 2
+    a = img1.float()
+    b = img2.float()
+    win = _gaussian_window().astype(np.float32)
+    mu1 = _filter_valid(a, win)
+    mu2 = _filter_valid(b, win)
+    mu1_sq, mu2_sq, mu1_mu2 = mu1 ** 2, mu2 ** 2, mu1 * mu2
+    sigma1_sq = _filter_valid(a * a, win) - mu1_sq
+    sigma2_sq = _filter_valid(b * b, win) - mu2_sq
+    sigma12 = _filter_valid(a * b, win) - mu1_mu2
+    ssim_map = ((2 * mu1_mu2 + c1) * (2 * sigma12 + c2)) / (
+        (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2))
+    return ssim_map.mean()

@@ -1,0 +1,92 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked `cuda`: they skip without a CUDA device (as on a CPU-only test
+machine) and run on one with
+
+    python -m pytest tests/test_torch_cuda.py -q -m cuda
+
+bf16 operands at small shapes; each tolerance is stated with its reason.
+chip_smoke.py repeats these checks at the 720p main-path shapes.
+"""
+
+import pytest
+import torch
+
+from speinet_tpu_torch import kernels
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _bf16(shape, g, scale=1.0):
+    return (torch.randn(shape, generator=g, device="cuda") * scale).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("cin,co,k,stride,hw", [
+    (3, 32, 5, 1, (20, 150)), (32, 32, 5, 1, (17, 130)), (32, 64, 5, 2, (20, 260)),
+    (64, 32, 3, 1, (9, 40)), (128, 128, 5, 1, (10, 40)), (8, 16, 3, 2, (7, 9))])
+def test_conv2d_kernel(gen, cin, co, k, stride, hw):
+    x = _bf16((2, *hw, cin), gen)
+    w = _bf16((k, k, cin, co), gen, (k * k * cin) ** -0.5)
+    b = torch.randn((co,), generator=gen, device="cuda")
+    kernels.reset_launches()
+    out = kernels.conv2d(x, w, b, relu=True, stride=stride)
+    assert kernels.LAUNCHES["conv2d"] == 1
+    ref = kernels.conv2d_plain(x, w, b, relu=True, stride=stride)
+    # one f32 sum rounded to bf16 on both sides: at most one bf16 step apart
+    tol = 2.0 ** -7 * max(ref.float().abs().max().item(), 1.0)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_roll2d_kernel(gen):
+    x = _bf16((2, 15, 20, 256), gen)
+    for sh, sw in ((2, 2), (-2, -2), (0, 3)):
+        assert torch.equal(kernels.roll2d(x, sh, sw), kernels.roll2d_plain(
+            x, sh % 15, sw % 20))
+    odd = torch.randn((1, 5, 7, 3), generator=gen, device="cuda")   # 12-byte rows
+    assert torch.equal(kernels.roll2d(odd, 1, 2), kernels.roll2d_plain(odd, 1, 2))
+
+
+@pytest.mark.parametrize("hw,ref_hw", [((12, 20), (12, 20)), ((9, 21), (21, 9))])
+def test_banded_corr_kernel(gen, hw, ref_hw):
+    f = _bf16((2, *hw, 128), gen)
+    g = _bf16((2, *ref_hw, 128), gen)
+    inv = torch.rand((2, ref_hw[0] * ref_hw[1]), generator=gen, device="cuda") + 0.5
+    s, idx = kernels.banded_corr_argmax(f, g, inv)
+    s_p, idx_p = kernels.banded_corr_argmax_plain(f, g, inv)
+    # the same bf16 products summed in f32 in another order
+    tol = 1e-5 * s_p.abs().max().item()
+    assert (s - s_p).abs().max().item() <= tol
+    agree = (idx == idx_p).float().mean().item()
+    assert agree > 0.99
+
+
+@pytest.mark.parametrize("shift,pad_h,pad_w", [(0, 0, 0), (2, 0, 0), (2, 3, 1)])
+def test_swin_block_kernel(gen, shift, pad_h, pad_w):
+    from speinet_tpu_torch.models.swinir import relative_position_index
+
+    c, hid, heads = 256, 512, 8
+    mat = lambda o, i: _bf16((o, i), gen, i ** -0.5)
+    vec = lambda n, s: torch.randn((n,), generator=gen, device="cuda") * s
+    table = vec(81 * heads, 0.1).reshape(81, heads)
+    idx = torch.from_numpy(relative_position_index(5, 5).reshape(-1)).cuda()
+    rel = table[idx].reshape(25, 25, heads).permute(2, 0, 1).contiguous()
+    wts = kernels.SwinBlockWeights(
+        1 + vec(c, 0.1), vec(c, 0.1), mat(2 * c, c), vec(2 * c, 0.1), mat(c, c),
+        vec(c, 0.1), mat(c, c), vec(c, 0.1), rel, 1 + vec(c, 0.1), vec(c, 0.1),
+        mat(hid, c), vec(hid, 0.1), mat(c, hid), vec(c, 0.1))
+    x = _bf16((3, 10, 15, c), gen)        # 3 x 6 windows: a ragged last CTA
+    y = _bf16((3, 10, 15, c), gen)
+    out = kernels.swin_block(x, y, wts, 5, shift, pad_h, pad_w, heads)
+    ref = kernels.swin_block_plain(x, y, wts, 5, shift, pad_h, pad_w, heads)
+    # held to the block's update, not its output (kernels/swin.py)
+    e = kernels.block_errors(out, ref, x)
+    assert kernels.block_errors_pass(e), e

@@ -1,0 +1,133 @@
+"""Package rules of speinet_tpu_torch: no JAX, no speinet_tpu imports, the
+card by default, kernel dispatch by the tensor's device alone."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import speinet_tpu_torch
+from speinet_tpu_torch import kernels
+from speinet_tpu_torch.config import Config, set_template
+from speinet_tpu_torch.infer import Inference, main
+
+PKG = pathlib.Path(speinet_tpu_torch.__file__).parent
+# the package's sources; build/ holds only what the kernels' build writes
+MODULES = sorted(p for p in PKG.rglob("*.py")
+                 if p.relative_to(PKG).parts[0] != "build")
+
+
+def test_fresh_import_leaves_jax_out():
+    code = ("import sys\n"
+            "import speinet_tpu_torch, speinet_tpu_torch.infer, "
+            "speinet_tpu_torch.kernels, speinet_tpu_torch.utils.convert, "
+            "speinet_tpu_torch.ops.metrics\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'speinet_tpu' or m.startswith('speinet_tpu.'))\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   cwd=PKG.parent, timeout=120)
+
+
+@pytest.mark.parametrize("path", MODULES, ids=lambda p: str(p.relative_to(PKG)))
+def test_no_jax_or_speinet_tpu_import(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        for n in names:
+            root = n.split(".")[0]
+            assert root not in ("jax", "jaxlib", "flax", "optax", "speinet_tpu"), \
+                f"{path.name} imports {n}"
+
+
+def _cfg():
+    return set_template(Config(template="SPEINet")).replace(
+        n_feat=8, embed_dim=32, depths=[2], num_heads=[4])
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Inference(_cfg(), str(tmp_path), "", str(tmp_path / "r"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--data_path", str(tmp_path), "--cache_pyramids", "--n_feat", "8"])
+    inf = Inference(_cfg(), str(tmp_path), "", str(tmp_path / "r"), device="cpu")
+    inf.close()
+
+
+@pytest.mark.parametrize("argv,dtype", [
+    ([], "bfloat16"), (["--device", "cpu"], "float32"),
+    (["--compute_dtype", "float32"], "float32")])
+def test_cli_computes_in_bf16_on_the_card(tmp_path, monkeypatch, argv, dtype):
+    import speinet_tpu_torch.infer as infer_mod
+
+    class Built(Exception):
+        pass
+
+    def record(cfg, *args, **kwargs):
+        raise Built(cfg.compute_dtype)
+
+    monkeypatch.setattr(infer_mod, "Inference", record)
+    with pytest.raises(Built, match=f"^{dtype}$"):
+        main(["--data_path", str(tmp_path), "--cache_pyramids", *argv])
+
+
+def test_card_takes_bf16_only(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="bfloat16"):
+        Inference(_cfg(), str(tmp_path), "", str(tmp_path / "r"))
+
+
+def _wrapper_calls():
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand((1, 10, 10, 32), generator=g)
+    w = torch.rand((3, 3, 32, 16), generator=g)
+    b = torch.rand((16,), generator=g)
+    inv = torch.rand((1, 100), generator=g)
+    from speinet_tpu_torch.kernels.swin import SwinBlockWeights
+
+    c, hid = 32, 64
+    wts = SwinBlockWeights(*[torch.rand(s, generator=g) for s in (
+        (c,), (c,), (2 * c, c), (2 * c,), (c, c), (c,), (c, c), (c,), (4, 25, 25),
+        (c,), (c,), (hid, c), (hid,), (c, hid), (c,))])
+    return [
+        ("conv2d", lambda t: kernels.conv2d(t, w, b, relu=True),
+         lambda t: kernels.conv2d_plain(t, w, b, relu=True)),
+        ("roll2d", lambda t: kernels.roll2d(t, 2, 2), lambda t: kernels.roll2d_plain(t, 2, 2)),
+        ("banded_corr_argmax", lambda t: kernels.banded_corr_argmax(t, t, inv)[0],
+         lambda t: kernels.banded_corr_argmax_plain(t, t, inv)[0]),
+        ("swin_block", lambda t: kernels.swin_block(t, t, wts, 5, 0, 0, 0, 4),
+         lambda t: kernels.swin_block_plain(t, t, wts, 5, 0, 0, 0, 4)),
+    ], x
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_nothing():
+    calls, x = _wrapper_calls()
+    kernels.reset_launches()
+    for name, fn, plain in calls:
+        torch.testing.assert_close(fn(x), plain(x), rtol=0, atol=0, msg=name)
+    assert all(v == 0 for v in kernels.LAUNCHES.values())
+
+
+def test_other_devices_raise():
+    calls, x = _wrapper_calls()
+    xm = x.to("meta")
+    for name, fn, _ in calls:
+        if name == "banded_corr_argmax":
+            fn = lambda t: kernels.banded_corr_argmax(t, t, torch.empty((1, 100),
+                                                                        device="meta"))
+        with pytest.raises(ValueError, match="device"):
+            fn(xm)
+
+
+def test_non_contiguous_input_is_refused():
+    x = torch.rand((1, 10, 12, 32)).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.conv2d(x, torch.rand((3, 3, 32, 16)), torch.rand(16))
