@@ -6,19 +6,24 @@ NVIDIA H100.
 
 Run from the root of a checkout on a machine with one CUDA card and the CUDA
 toolkit. In order it:
-1. builds the four hand-written kernels from `speinet_tpu_torch/csrc/`;
+1. builds the five hand-written kernels from `speinet_tpu_torch/csrc/`;
 2. holds each kernel against its plain PyTorch version on the card, in
-   bf16 at the shapes of the 720p main path, and times kernel, plain
-   version and (where one PyTorch call computes the same function) the
-   library call, beside the least time the card could take;
-3. runs the cached-video engine (`Inference.infer_video`) on a synthetic
+   bf16 at the shapes of the 720p paths, and times kernel, plain version
+   and (where one PyTorch call computes the same function) the library
+   call, beside the least time the card could take;
+3. runs both inference engines (`Inference.infer_video`) on a synthetic
    12-frame 1280x720 video at the full width of the SPEINet template
    (n_feat 32, embed_dim 256, depths 6x6, 8 heads, window 5, bf16) with
    seeded random weights and 2 windows per chunk, so 'sharp', 'self' and a
-   mixed chunk all occur; the launch counts of that run show every kernel
-   was on the path;
+   mixed chunk all occur: the cached engine (K1-K5; the mixed chunk is one
+   'mixed' restore through K5) and the direct engine (SPEINet.forward,
+   per-sample routing through K5), whose frames must agree with the
+   cached engine's at 40 dB or more; the launch counts of each run, reset
+   just before it, show every kernel of its path was launched;
 4. checks the port on the card against the port's float32 plain path on
-   the CPU, same weights, on a small input;
+   the CPU, same weights, at 80x80: the cached restore in both routings,
+   the direct forward on a mixed batch, the self-ensemble and the chopped
+   forward; and the sharpness detector's labels of the video;
 5. prints the `kernels` JSON line, the card's name and power limit, and as
    the last line {"ok": true, "device": {...}}.
 
@@ -259,6 +264,56 @@ def check_corr(rng_seed: int):
     return rows
 
 
+def check_corr_unfold(rng_seed: int):
+    """K5 on mixed batches (sample 0 searches a sharp map's unfold, sample 1
+    the permuted self reference) at 720p lv3 and at a chop tile's lv3."""
+    import torch
+    from speinet_tpu_torch.kernels import (correlation_argmax_lds,
+                                          correlation_argmax_lds_plain)
+    from speinet_tpu_torch.kernels.corr import scaled_reference
+    from speinet_tpu_torch.models.search_transfer import (mixed_reference,
+                                                          patch_inv_norms)
+
+    g = torch.Generator(device="cuda").manual_seed(rng_seed)
+    has_sharp = torch.tensor([True, False], device="cuda")
+    rows = []
+    for h, w in ((180, 320), (95, 165)):
+        f = torch.rand((2, h, w, 128), generator=g, device="cuda").to(torch.bfloat16)
+        sharp = torch.rand((2, h, w, 128), generator=g, device="cuda").to(torch.bfloat16)
+        lr, ref, inv = mixed_reference(f, sharp, has_sharp, patch_inv_norms(f))
+        lr, ref, inv = lr.contiguous(), ref.contiguous(), inv.contiguous()
+        s, idx = correlation_argmax_lds(lr, ref, inv)
+        s_p, idx_p = correlation_argmax_lds_plain(lr, ref, inv)
+        torch.cuda.synchronize()
+        err = (s - s_p).abs().max().item()
+        # the same bf16 operands (the scale rounded alike), f32 sums of
+        # D = 1152 products in another order
+        tol = 1e-5 * max(s_p.abs().max().item(), 1.0)
+        if not err <= tol:
+            raise AssertionError(f"corr_unfold {h}x{w}: max |S err| {err} > {tol}")
+        # an index may differ only where it attains the max within tol
+        diff = (idx != idx_p).nonzero()
+        if diff.numel():
+            bi, p = diff[:, 0], diff[:, 1]
+            q = idx[bi, p].long()
+            sc = scaled_reference(ref, inv)
+            at_k = (lr[bi, :, p].float() * sc[bi, :, q].float()).sum(1)
+            gap = (at_k - s_p[bi, p]).abs().max().item()
+            if not gap <= tol:
+                raise AssertionError(f"corr_unfold {h}x{w}: index off the max by {gap}")
+        ms = time_ms(lambda: correlation_argmax_lds(lr, ref, inv), iters=3, warmup=1)
+        plain_ms = time_ms(lambda: correlation_argmax_lds_plain(lr, ref, inv),
+                           iters=1, warmup=1)
+        b, d, l = lr.shape
+        flops = 2.0 * b * l * ref.shape[2] * d
+        bms, by = bound(flops, nbytes(lr, ref, inv, s, idx))
+        rows.append(dict(shape=f"mixed B=2 D=1152 L=Lr={l} ({h}x{w}x128)",
+                         max_abs_err=err, tol=tol, idx_differs=int(diff.shape[0]),
+                         ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                         bound_by=by, flops=flops))
+    return rows
+
+
 def synthetic_video(n: int, h: int, w: int, seed: int):
     """n uint8 HxWx3 frames: smooth moving patterns plus noise."""
     import numpy as np
@@ -275,8 +330,11 @@ def synthetic_video(n: int, h: int, w: int, seed: int):
     return frames
 
 
-def run_main_path(cfg, n_frames: int, h: int, w: int):
-    """The cached engine on a synthetic video; returns (inference, counts, s)."""
+def run_main_path(cfg, frames, cache_pyramids: bool):
+    """One engine on a synthetic video with sharp labels at its first and
+    last frame (12 frames, 2 per chunk: sharp x3, mixed, self x2). Returns
+    (inference, launch counts of the run, wall s, psnr, ssim, outputs),
+    outputs the restored frames [3, H, W] f32 on the CPU by name."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
@@ -284,14 +342,24 @@ def run_main_path(cfg, n_frames: int, h: int, w: int):
     from speinet_tpu_torch.infer import Inference
     from speinet_tpu_torch.kernels import LAUNCHES, reset_launches
 
-    frames = synthetic_video(n_frames, h, w, seed=1)
+    n_frames = len(frames)
     keys = [f"synthetic/{i:08d}" for i in range(n_frames)]
     store = dict(zip(keys, frames))
     labels = np.zeros(n_frames, np.int64)
-    labels[[0, n_frames - 1]] = 1     # 12 frames, 2 per chunk: sharp x3, mixed, self x2
+    labels[[0, n_frames - 1]] = 1
+    outputs = {}
     with tempfile.TemporaryDirectory() as res:
         inf = Inference(cfg, data_path=res, model_path="", result_path=res,
-                        save_image=False, batch_windows=2, device="cuda", seed=0)
+                        save_image=False, batch_windows=2,
+                        cache_pyramids=cache_pyramids, device="cuda", seed=0)
+        score = inf._score_chunk
+
+        def keep(v, names, out, *args):
+            for k, name in enumerate(names):
+                outputs[name] = out[k].float().cpu()
+            return score(v, names, out, *args)
+
+        inf._score_chunk = keep
         try:
             with ThreadPoolExecutor(max_workers=4) as pool:
                 # warm-up chunk: first-use costs (allocator, cuDNN plans)
@@ -310,23 +378,47 @@ def run_main_path(cfg, n_frames: int, h: int, w: int):
     if len(psnr) != n_frames or not all(np.isfinite(psnr)) \
             or not all(np.isfinite(ssim)):
         raise AssertionError(f"engine output not finite: {psnr} {ssim}")
-    return inf, counts, wall, psnr, ssim
+    return inf, counts, wall, psnr, ssim, outputs
+
+
+def psnr_db(a, b, peak: float = 1.0) -> float:
+    """PSNR of two float images clamped to [0, peak]."""
+    import math
+
+    mse = ((a.clamp(0, peak) - b.clamp(0, peak)) ** 2).mean().item()
+    return 10 * math.log10(peak * peak / max(mse, 1e-20))
 
 
 def check_against_cpu(cfg, inf):
     """The card (kernels, bf16) against the CPU plain path (f32), same
-    weights, on one 3-frame window at 80x80 in both routings."""
+    weights, at 80x80: the cached restore of one window in both host
+    routings, and on a mixed batch (sample 1 has frame 3 zeroed) the direct
+    forward, the 8-way self-ensemble and the chopped forward."""
     import numpy as np
     import torch
+    from speinet_tpu_torch.infer import forward_x8
     from speinet_tpu_torch.models.speinet import SPEINet
+    from speinet_tpu_torch.parallel.chop import chop_forward
 
     cpu = SPEINet.from_config(cfg.replace(compute_dtype="float32"))
     cpu.load_state_dict({k: v.cpu() for k, v in inf.model.state_dict().items()})
     cpu.eval()
     frames = torch.from_numpy(np.stack(
-        [f.transpose(2, 0, 1) for f in synthetic_video(4, 80, 80, seed=2)])
+        [f.transpose(2, 0, 1) for f in synthetic_video(5, 80, 80, seed=2)])
     ).float() / 255.0
     results = {}
+
+    def compare(name, gpu_o, cpu_o):
+        if not torch.isfinite(gpu_o).all():
+            raise AssertionError(f"{name}: card output not finite")
+        psnr = psnr_db(gpu_o, cpu_o)
+        results[name] = dict(max_abs_diff=(gpu_o - cpu_o).abs().max().item(),
+                             psnr_vs_cpu_f32=psnr)
+        # bf16 through 36 Swin blocks and ~30 ResBlocks against f32: the
+        # outputs must agree to well above the rounding noise floor
+        if not psnr > 30.0:
+            raise AssertionError(f"{name}: card vs CPU PSNR {psnr:.2f} dB")
+
     for routing in ("sharp", "self"):
         outs = []
         for model, dev in ((inf.model, "cuda"), (cpu, "cpu")):
@@ -336,18 +428,41 @@ def check_against_cpu(cfg, inf):
             o = model.restore_from_features(m[1:2], (n[0:1], n[2:3]), p1, p2, p3,
                                             routing)
             outs.append(o.float().cpu())
-        gpu_o, cpu_o = outs
-        if not torch.isfinite(gpu_o).all():
-            raise AssertionError("card output not finite")
-        mse = ((gpu_o.clamp(0, 1) - cpu_o.clamp(0, 1)) ** 2).mean().item()
-        psnr = 10 * np.log10(1.0 / max(mse, 1e-20))
-        results[routing] = dict(max_abs_diff=(gpu_o - cpu_o).abs().max().item(),
-                                psnr_vs_cpu_f32=psnr)
-        # bf16 through 36 Swin blocks and ~30 ResBlocks against f32: the
-        # outputs must agree to well above the rounding noise floor
-        if not psnr > 30.0:
-            raise AssertionError(f"{routing}: card vs CPU PSNR {psnr:.2f} dB")
+        compare(f"restore_{routing}", *outs)
+    blind = frames.clone()
+    blind[3] = 0.0
+    x = torch.stack([frames, blind])
+    for name, fn in (("forward_mixed", lambda m, t: m(t)),
+                     ("forward_x8", lambda m, t: forward_x8(t, m)),
+                     ("chop", lambda m, t: chop_forward(m, t, shave=cfg.chop_shave))):
+        compare(name, fn(inf.model, x.cuda()).float().cpu(), fn(cpu, x))
     return results
+
+
+def check_detector(frames):
+    """Labels of the synthetic video from focus features computed on the
+    card and on the CPU: features within 1e-4 relative, labels equal
+    wherever the margin exceeds what that feature tolerance can move."""
+    import numpy as np
+    from speinet_tpu_torch.detector.classifier import LogisticRegression
+    from speinet_tpu_torch.detector.train import video_features
+
+    det = LogisticRegression.load()
+    arr = np.stack(frames)
+    f_gpu = video_features(arr, kernel_size=11, device="cuda")
+    f_cpu = video_features(arr, kernel_size=11, device="cpu")
+    rel = float(np.max(np.abs(f_gpu - f_cpu) / np.maximum(np.abs(f_cpu), 1e-30)))
+    if not rel <= 1e-4:
+        raise AssertionError(f"detector features: card vs CPU relative diff {rel}")
+    m_cpu = det.decision_function(f_cpu)
+    slack = (np.abs(det.coef / det.scale) * np.abs(f_cpu) * 1e-4).sum(axis=1)
+    sure = np.abs(m_cpu) > slack
+    l_gpu, l_cpu = det.predict(f_gpu), det.predict(f_cpu)
+    if not np.array_equal(l_gpu[sure], l_cpu[sure]):
+        raise AssertionError(f"detector labels differ: {l_gpu} vs {l_cpu}")
+    return dict(frames=len(frames), features_max_rel_diff=rel,
+                labels_card=l_gpu.tolist(), labels_cpu=l_cpu.tolist(),
+                decided_beyond_tolerance=int(sure.sum()))
 
 
 def main() -> int:
@@ -380,7 +495,9 @@ def main() -> int:
 
     checks = {}
     for name, fn in (("roll2d", check_roll), ("conv2d", check_conv),
-                     ("banded_corr_argmax", check_corr), ("swin_block", check_swin)):
+                     ("banded_corr_argmax", check_corr),
+                     ("correlation_argmax_lds", check_corr_unfold),
+                     ("swin_block", check_swin)):
         t1 = time.time()
         checks[name] = fn(0)
         for row in checks[name]:
@@ -389,17 +506,39 @@ def main() -> int:
 
     cfg = set_template(Config(template="SPEINet")).replace(
         compute_dtype="bfloat16", n_threads=4)
-    n_frames = 12
-    inf, counts, wall, psnr, ssim = run_main_path(cfg, n_frames, 720, 1280)
-    per_frame = {k: v / n_frames * 1e3 for k, v in inf.stage_seconds.items()}
-    print("main path: " + json.dumps(dict(
-        frames=n_frames, size="1280x720", batch_windows=2, wall_s=wall,
-        ms_per_frame=per_frame, launches=counts,
-        mean_psnr_vs_gt=float(sum(psnr) / len(psnr)))), flush=True)
-    missing = [k for k, v in counts.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    frames = synthetic_video(12, 720, 1280, seed=1)
+    n_frames = len(frames)
+    # each path with its launch counts reset just before it: the kernels
+    # each one must launch
+    paths = {"cached": ["conv2d", "swin_block", "roll2d", "banded_corr_argmax",
+                        "correlation_argmax_lds"],
+             "direct": ["conv2d", "swin_block", "roll2d", "correlation_argmax_lds"]}
+    launches = {k: 0 for k in checks}
+    outputs = {}
+    for path, needs in paths.items():
+        inf, counts, wall, psnr, ssim, outputs[path] = run_main_path(
+            cfg, frames, cache_pyramids=path == "cached")
+        per_frame = {k: v / n_frames * 1e3 for k, v in inf.stage_seconds.items() if v}
+        line = dict(engine=path, frames=n_frames, size="1280x720", batch_windows=2,
+                    wall_s=wall, ms_per_frame=per_frame, launches=counts,
+                    mean_psnr_vs_gt=float(sum(psnr) / len(psnr)))
+        if path == "direct":
+            vs = [psnr_db(outputs["direct"][k], outputs["cached"][k])
+                  for k in sorted(outputs["cached"])]
+            line["psnr_vs_cached_db"] = vs
+        print(f"main path ({path}): " + json.dumps(line), flush=True)
+        missing = [k for k in needs if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the {path} path: {missing}")
+        for k in launches:
+            launches[k] += counts[k]
+    # the engines differ only in bf16 rounding places (the direct forward
+    # rounds the centre frame to bf16 before its RL branch, the cached legs
+    # run RL on the f32 frame) and in K4 vs K5 summation order
+    if not min(vs) >= 40.0:
+        raise AssertionError(f"direct vs cached engine: {min(vs):.2f} dB < 40")
     print("card vs cpu: " + json.dumps(check_against_cpu(cfg, inf)), flush=True)
+    print("detector: " + json.dumps(check_detector(frames)), flush=True)
 
     meta = {
         "conv2d": ("speinet_tpu_torch/csrc/conv.cu",
@@ -410,6 +549,8 @@ def main() -> int:
                    "speinet_tpu/ops/pallas_roll.py:115"),
         "banded_corr_argmax": ("speinet_tpu_torch/csrc/corr_banded.cu",
                                "speinet_tpu/ops/pallas_corr.py:526"),
+        "correlation_argmax_lds": ("speinet_tpu_torch/csrc/corr_unfold.cu",
+                                   "speinet_tpu/ops/pallas_corr.py:260"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():
@@ -418,7 +559,7 @@ def main() -> int:
         ops_ms = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=counts[name],
+            launches=launches[name],
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
             bound_ms=sum(r["bound_ms"] for r in rows),

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Where the port's 720p cached-video time goes on one CUDA card.
+"""Where the port's 720p inference time goes on one CUDA card.
 
     python3 profile_port.py
 
 Builds the SPEINet template at full width in bf16 with seeded random
 weights, encodes three synthetic 1280x720 frames and one sharp anchor, then
-profiles three calls of each engine stage (legs: one frame's encoder legs;
-anchor: one anchor pyramid; restore: two windows, as the engine's chunks of
-chip_smoke.py hold, 'sharp' and 'self' routing) with torch.profiler. Prints, per stage, the wall ms per call (host
-clock around work ending in a device sync), the device-busy share (summed
-kernel time over wall time) and the kernels that take most of the device
-time. Imports nothing of JAX.
+profiles three calls of each stage with torch.profiler: the cached engine's
+legs (one frame's encoder legs), anchor (one anchor pyramid) and restore
+(two windows, as the engine's chunks of chip_smoke.py hold, in 'sharp',
+'self' and 'mixed' routing), and the direct engine's forward of two
+windows (one with its pre-sharp frame zeroed, so routed per sample).
+Prints, per stage, the wall ms per call (host clock around work ending in
+a device sync), the device-busy share (summed kernel time over wall time)
+and the kernels that take most of the device time. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -43,6 +45,9 @@ def main() -> int:
     lv = model.anchor_pyramid(frames[3:4])
     b = WINDOWS
     rep = lambda t: t.expand(b, *t.shape[1:]).contiguous()
+    mixed = torch.arange(b, device="cuda") % 2 == 0
+    x = torch.stack([frames[[0, 1, 2, 3, 3]]] * b)     # [b, 5, 3, 720, 1280]
+    x[1::2, 3] = 0.0
     stages = {
         "legs (1 frame)": lambda: model.encode_window_legs(frames[:1]),
         "anchor (1 frame)": lambda: model.anchor_pyramid(frames[3:4]),
@@ -50,6 +55,9 @@ def main() -> int:
             rep(m[1:2]), (rep(n[0:1]), rep(n[2:3])), *map(rep, lv), "sharp"),
         f"restore self ({b} windows)": lambda: model.restore_from_features(
             rep(m[1:2]), (rep(n[0:1]), rep(n[2:3])), *map(rep, lv), "self"),
+        f"restore mixed ({b} windows)": lambda: model.restore_from_features(
+            rep(m[1:2]), (rep(n[0:1]), rep(n[2:3])), *map(rep, lv), "mixed", mixed),
+        f"direct forward ({b} windows)": lambda: model(x),
     }
     print(f"device: {torch.cuda.get_device_name(0)}")
     for name, fn in stages.items():

@@ -1,30 +1,30 @@
-"""Cached-video inference engine (port of `speinet_tpu/infer.py`'s
-`--cache_pyramids` engine; parity: inference_SPEINet.py).
+"""Inference engines (port of `speinet_tpu/infer.py`; parity:
+inference_SPEINet.py).
 
-Per video: sharp labels, border-padded sliding 3-frame windows, the
-pre/sub sharp anchors with the >7-frame zero rule, per-frame encoder legs
-and anchor pyramids computed once and reused across windows, windows
-restored `batch_windows` at a time, PSNR (float64 host, border crop 4) and
-MATLAB SSIM, PNGs, and the reference's `inference_log` format.
-
-A chunk holding both sharp and self windows is split on the host into its
-sharp and its self windows, each restored with its own routing, as the
-reference engine does (model/speinet.py:150-168); per-sample eval-mode
-operations make that equal to one mixed call.
+Per video: sharp labels (from `label/<video>.npy`, or from the sharpness
+detector when the tree has no `label/` directory), border-padded sliding
+3-frame windows with the pre/sub sharp anchors and the >7-frame zero rule,
+windows restored `batch_windows` at a time, PSNR (float64 host, border
+crop 4) and MATLAB SSIM, PNGs, and the reference's `inference_log` format.
+Two engines:
+- direct (the default): each window's five frames go through
+  `SPEINet.forward`, with per-sample routing; `--self_ensemble` averages
+  the 8 flips / transposes of the input (`forward_x8`), `--chop` runs four
+  overlapping quadrants as one batch (`parallel/chop.py`);
+- `--cache_pyramids`: per-frame encoder legs and anchor pyramids computed
+  once and reused across windows; a chunk restores with routing 'sharp' or
+  'self' when all its windows agree, else as one 'mixed' call.
 
 Frame decoding is kept apart from the window logic: `infer_video` takes
 frame keys and a `load(key) -> HxWx3 uint8` function, so in-memory frames
 work as well as the PNG tree of the CLI.
 
-    python -m speinet_tpu_torch.infer --cache_pyramids --data_path <tree> \
-        [--model_path port_state_dict.pt]
+    python -m speinet_tpu_torch.infer --data_path <tree> \
+        [--cache_pyramids] [--self_ensemble] [--chop] \
+        [--model_path port_state_dict.pt] [--detector_pickle model.pkl]
 
 On the card the CLI computes in bfloat16 unless --compute_dtype says
 otherwise; with --device cpu it keeps the config's float32.
-
-Not in this slice (they raise NotImplementedError; see ROADMAP.md): the
-non-cached direct mode, --self_ensemble, --chop, and on-the-fly sharpness
-detection when the tree has no label/ directory.
 """
 
 from __future__ import annotations
@@ -41,8 +41,21 @@ import torch
 
 from speinet_tpu_torch.config import Config
 from speinet_tpu_torch.data.indices import gene_seq, gene_seq_nsf
+from speinet_tpu_torch.detector.classifier import LogisticRegression
+from speinet_tpu_torch.detector.train import video_features
 from speinet_tpu_torch.models.speinet import SPEINet, init_weights
 from speinet_tpu_torch.ops.metrics import psnr_uint8_host, ssim_matlab
+from speinet_tpu_torch.parallel.chop import chop_forward
+
+# --default_data presets: (data_path, result_path) relative to the working
+# tree (parity: inference_SPEINet.py:626-697, which hardcodes user paths)
+PRESETS = {
+    "REDS": ("./data/deblur/REDS_8x_Random/test", "./infer_results/reds"),
+    "GOPRO": ("./data/deblur/GOPRO/test", "./infer_results/gopro"),
+    "BSD": ("./data/deblur/BSDtest", "./infer_results/bsd"),
+    "BSDtest_all": ("./data/deblur/BSDtest_all/BSD_3ms24ms",
+                    "./infer_results/bsd_3ms24ms"),
+}
 
 
 def resolve_device(device) -> torch.device:
@@ -64,6 +77,30 @@ def _frame_number(path: str) -> int:
     return int(os.path.splitext(os.path.basename(path))[0].split(".")[-1])
 
 
+def forward_x8(x: torch.Tensor, fwd) -> torch.Tensor:
+    """8-way flip / transpose self-ensemble of x [B, T, C, H, W]: the mean
+    of the 8 outputs, each mapped back (parity: util/network_utils.py:
+    308-341, speinet_tpu/infer.py:53)."""
+    outs = []
+    for tf in range(8):
+        xt = x
+        if tf & 1:
+            xt = torch.flip(xt, (-1,))
+        if tf & 2:
+            xt = torch.flip(xt, (-2,))
+        if tf & 4:
+            xt = xt.transpose(-1, -2)
+        y = fwd(xt.contiguous())
+        if tf & 4:
+            y = y.transpose(-1, -2)
+        if tf & 2:
+            y = torch.flip(y, (-2,))
+        if tf & 1:
+            y = torch.flip(y, (-1,))
+        outs.append(y)
+    return torch.stack(outs).mean(dim=0)
+
+
 class TraverseLogger:
     """Parity: inference_SPEINet.py:26-34."""
 
@@ -83,15 +120,12 @@ class TraverseLogger:
 class Inference:
     def __init__(self, cfg: Config, data_path: str, model_path: str,
                  result_path: str, save_image: bool = True, border: bool = True,
-                 batch_windows: int = 1, cache_pyramids: bool = True,
-                 self_ensemble: bool = False, device="cuda", seed: int = 0):
-        if not cache_pyramids:
-            raise NotImplementedError(
-                "the direct (non-cached) engine is not ported yet; run with "
-                "cache_pyramids (see ROADMAP.md)")
-        if self_ensemble or cfg.chop:
-            raise NotImplementedError(
-                "--self_ensemble and --chop are not ported yet (ROADMAP.md)")
+                 detector_pickle: str | None = None, self_ensemble: bool = False,
+                 batch_windows: int = 1, cache_pyramids: bool = False,
+                 device="cuda", seed: int = 0):
+        if cache_pyramids and (self_ensemble or cfg.chop):
+            raise ValueError("--self_ensemble and --chop run on the direct "
+                             "engine; drop --cache_pyramids")
         self.device = resolve_device(device)
         if self.device.type == "cuda" and cfg.compute_dtype != "bfloat16":
             raise ValueError("the port's CUDA kernels take bfloat16: run with "
@@ -102,6 +136,9 @@ class Inference:
         self.save_image = save_image
         self.border = border
         self.batch_windows = max(1, batch_windows)
+        self.cache_pyramids = cache_pyramids
+        self.self_ensemble = self_ensemble
+        self.detector_pickle = detector_pickle
         self.result_path = result_path
         self.input_path = os.path.join(data_path, "blur")
         self.gt_path = os.path.join(data_path, "gt")
@@ -129,8 +166,10 @@ class Inference:
             init_weights(self.model, seed)     # random init (smoke / demo mode)
         self.model.to(self.device).eval()
         self.logger.write_log(f"Loading model from {model_path}")
-        # seconds spent in each engine stage, each ended by a device sync
-        self.stage_seconds = {"legs": 0.0, "anchor": 0.0, "restore": 0.0}
+        # seconds spent in each engine stage, each ended by a device sync:
+        # the cached engine's legs / anchor / restore, the direct forward
+        self.stage_seconds = {"legs": 0.0, "anchor": 0.0, "restore": 0.0,
+                              "forward": 0.0}
         self.total_psnr: Dict[str, List[float]] = {}
         self.total_ssim: Dict[str, List[float]] = {}
 
@@ -148,10 +187,109 @@ class Inference:
     def infer_video(self, v: str, input_frames: Sequence[str],
                     gt_frames: Sequence[str], labels,
                     load: Callable[[str], np.ndarray], pool: ThreadPoolExecutor):
+        """Sliding-window inference of one video with the engine chosen at
+        construction. `input_frames` / `gt_frames` are keys whose base names
+        end in the frame number; `load(key)` returns the HxWx3 uint8 frame.
+        Returns the per-frame (psnr, ssim) lists."""
+        run = self._infer_video_cached if self.cache_pyramids else self._infer_video_direct
+        video_psnr, video_ssim = run(v, input_frames, gt_frames, labels, load, pool)
+        self.total_psnr[v] = video_psnr
+        self.total_ssim[v] = video_ssim
+        return video_psnr, video_ssim
+
+    def _score_chunk(self, v, names, out, gt_results, start, t_pre,
+                     video_psnr, video_ssim) -> None:
+        """Quantize a restored chunk [n, 3, H, W], score each frame against
+        its ground truth, save it, and write the reference's log line."""
+        imgs_dev = torch.clamp(torch.round(out * (255.0 / self.cfg.rgb_range)),
+                               0, 255).to(torch.uint8).permute(0, 2, 3, 1)
+        imgs = imgs_dev.cpu().numpy()
+        t_fwd = time.time()
+        nb = len(names)
+        for k, filename in enumerate(names):
+            img, gt = imgs[k], gt_results[k]()
+            psnr = psnr_uint8_host(img, gt, crop_border=4)
+            ssim = float(ssim_matlab(torch.from_numpy(np.ascontiguousarray(gt)).to(
+                self.device), imgs_dev[k]))
+            video_psnr.append(psnr)
+            video_ssim.append(ssim)
+            if self.save_image:
+                import imageio.v2 as imageio
+
+                os.makedirs(os.path.join(self.result_path, v), exist_ok=True)
+                imageio.imwrite(os.path.join(self.result_path, v,
+                                             f"{filename}.png"), img)
+            t_post = time.time()
+            self.logger.write_log(
+                f"> {v}-{filename} PSNR={psnr:.5}, SSIM={ssim:.4} "
+                f"pre_time:{(t_pre - start) / nb:.3}s, "
+                f"forward_time:{(t_fwd - t_pre) / nb:.3}s, "
+                f"post_time:{(t_post - t_fwd) / nb:.3}s, "
+                f"total_time:{(t_post - start) / nb:.3}s")
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, 5, 3, H, W] windows -> [B, 3, H, W], chopped and / or
+        self-ensembled as configured."""
+        fwd = self.model
+        if self.cfg.chop:
+            fwd = lambda t: chop_forward(self.model, t, shave=self.cfg.chop_shave)
+        return forward_x8(x, fwd) if self.self_ensemble else fwd(x)
+
+    def _prepare_window(self, in_seq, gt_seq, pre_seq, sub_seq, padded_inputs,
+                        load):
+        """Decode, crop and zero-rule one window (host side, thread-safe):
+        (name, [5, 3, H, W] float32, HxWx3 uint8 ground truth). The pre- and
+        sub-sharp frames are zeroed when more than 7 frames from the
+        window's last frame (parity: speinet_tpu/infer.py:228-249)."""
+        n_seq = self.n_seq
+        filename = os.path.basename(in_seq[n_seq // 2]).split(".")[0]
+        seq = list(in_seq) + [padded_inputs[pre_seq[0]],
+                              padded_inputs[sub_seq[n_seq - 1]]]
+        nums = [_frame_number(p) for p in seq]
+        inputs = [load(p) for p in seq]
+        gt = load(gt_seq[n_seq // 2])
+        h, w = inputs[n_seq // 2].shape[:2]
+        nh, nw = h - h % self.size_must_mode, w - w % self.size_must_mode
+        inputs = [im[:nh, :nw] for im in inputs]
+        gt = gt[:nh, :nw]
+        if abs(nums[2] - nums[3]) > 7:
+            inputs[-2] = np.zeros_like(inputs[-2])
+        if abs(nums[2] - nums[4]) > 7:
+            inputs[-1] = np.zeros_like(inputs[-1])
+        x = np.stack([im.transpose(2, 0, 1) for im in inputs]).astype(np.float32)
+        x *= self.cfg.rgb_range / 255.0
+        return filename, x, gt
+
+    def _infer_video_direct(self, v, input_frames, gt_frames, labels, load, pool):
+        """Each window's five frames through the model; windows are decoded
+        by the pool one chunk ahead of the card."""
+        n_seq, bw = self.n_seq, self.batch_windows
+        pre_lists, sub_lists = gene_seq_nsf(labels, n_seq=n_seq, border=self.border)
+        input_seqs, padded_inputs = gene_seq(input_frames, n_seq=n_seq,
+                                             border=self.border)
+        gt_seqs, _ = gene_seq(gt_frames, n_seq=n_seq, border=self.border)
+        n_win = len(input_seqs)
+        futures = {}
+        video_psnr, video_ssim = [], []
+        for s in range(0, n_win, bw):
+            start = time.time()
+            for w in range(s, min(s + 2 * bw, n_win)):   # this chunk and the next
+                if w not in futures:
+                    futures[w] = pool.submit(self._prepare_window, input_seqs[w],
+                                             gt_seqs[w], pre_lists[w], sub_lists[w],
+                                             padded_inputs, load)
+            chunk = [futures.pop(w).result() for w in range(s, min(s + bw, n_win))]
+            x = torch.from_numpy(np.stack([c[1] for c in chunk])).to(self.device)
+            t_pre = time.time()
+            out = self._timed("forward", self._forward, x)
+            self._score_chunk(v, [c[0] for c in chunk], out,
+                              [lambda g=c[2]: g for c in chunk], start, t_pre,
+                              video_psnr, video_ssim)
+        return video_psnr, video_ssim
+
+    def _infer_video_cached(self, v, input_frames, gt_frames, labels, load, pool):
         """Sliding-window inference with per-frame features and anchor
-        pyramids cached across windows. `input_frames` / `gt_frames` are
-        keys whose base names end in the frame number; `load(key)` returns
-        the HxWx3 uint8 frame. Returns the per-frame (psnr, ssim) lists."""
+        pyramids cached across windows."""
         n_seq = self.n_seq
         bw = self.batch_windows
         dev = self.device
@@ -226,49 +364,21 @@ class Inference:
             ensure_feats(chunk_paths)
             for w in wins:
                 ensure_anchor(metas[w][3])
-            out = torch.empty((len(wins), 3, nh, nw), dtype=torch.float32,
-                              device=dev)
-            for routing, want in (("sharp", True), ("self", False)):
-                ks = [k for k, w in enumerate(wins) if metas[w][2] == want]
-                if not ks:
-                    continue
-                sel = [wins[k] for k in ks]
-                cat = lambda xs: torch.cat(xs, dim=0)
-                res = self._timed(
-                    "restore", self.model.restore_from_features,
-                    cat([feat[metas[i][0]][0] for i in sel]),
-                    (cat([feat[metas[i][1][0]][1] for i in sel]),
-                     cat([feat[metas[i][1][1]][1] for i in sel])),
-                    cat([anchors[metas[i][3]][0] for i in sel]),
-                    cat([anchors[metas[i][3]][1] for i in sel]),
-                    cat([anchors[metas[i][3]][2] for i in sel]), routing)
-                out[ks] = res
-            imgs_dev = torch.clamp(torch.round(out * (255.0 / self.cfg.rgb_range)),
-                                   0, 255).to(torch.uint8).permute(0, 2, 3, 1)
-            imgs = imgs_dev.cpu().numpy()
-            t_fwd = time.time()
-            for k, w in enumerate(wins):
-                filename = os.path.basename(metas[w][0]).split(".")[0]
-                img, gt = imgs[k], gts[k].result()
-                psnr = psnr_uint8_host(img, gt, crop_border=4)
-                ssim = float(ssim_matlab(to_dev(np.ascontiguousarray(gt)),
-                                         imgs_dev[k]))
-                video_psnr.append(psnr)
-                video_ssim.append(ssim)
-                if self.save_image:
-                    import imageio.v2 as imageio
-
-                    os.makedirs(os.path.join(self.result_path, v), exist_ok=True)
-                    imageio.imwrite(os.path.join(self.result_path, v,
-                                                 f"{filename}.png"), img)
-                t_post = time.time()
-                nb = len(wins)
-                self.logger.write_log(
-                    f"> {v}-{filename} PSNR={psnr:.5}, SSIM={ssim:.4} "
-                    f"pre_time:{(t_pre - start) / nb:.3}s, "
-                    f"forward_time:{(t_fwd - t_pre) / nb:.3}s, "
-                    f"post_time:{(t_post - t_fwd) / nb:.3}s, "
-                    f"total_time:{(t_post - start) / nb:.3}s")
+            hs = [metas[w][2] for w in wins]
+            routing = "sharp" if all(hs) else "self" if not any(hs) else "mixed"
+            cat = lambda xs: torch.cat(xs, dim=0)
+            out = self._timed(
+                "restore", self.model.restore_from_features,
+                cat([feat[metas[w][0]][0] for w in wins]),
+                (cat([feat[metas[w][1][0]][1] for w in wins]),
+                 cat([feat[metas[w][1][1]][1] for w in wins])),
+                cat([anchors[metas[w][3]][0] for w in wins]),
+                cat([anchors[metas[w][3]][1] for w in wins]),
+                cat([anchors[metas[w][3]][2] for w in wins]), routing,
+                torch.tensor(hs, device=dev))
+            names = [os.path.basename(metas[w][0]).split(".")[0] for w in wins]
+            self._score_chunk(v, names, out, [g.result for g in gts], start, t_pre,
+                              video_psnr, video_ssim)
             # evict what no remaining window needs
             horizon = s + bw
             for p in [p for p, i in last_pos.items() if i < horizon]:
@@ -277,18 +387,18 @@ class Inference:
             keep = {metas[w][3] for w in range(horizon, n_win)} | {"<ZERO>"}
             for p in [p for p in anchors if p not in keep]:
                 anchors.pop(p)
-        self.total_psnr[v] = video_psnr
-        self.total_ssim[v] = video_ssim
         return video_psnr, video_ssim
 
-    def _labels_for_video(self, v: str) -> np.ndarray:
-        path = os.path.join(self.label_path, v + ".npy")
-        if not os.path.exists(path):
-            raise FileNotFoundError(
-                f"{path} is missing: the sharpness detector that labels "
-                f"frames on the fly is a later slice of the port (ROADMAP.md); "
-                f"provide label/<video>.npy")
-        return np.load(path)
+    def _labels_for_video(self, v: str, input_frames: Sequence[str],
+                          load: Callable[[str], np.ndarray]) -> np.ndarray:
+        """label/<video>.npy when the tree has a label/ directory, else the
+        sharpness detector's labels of the frames (parity:
+        inference_SPEINet.py:349-353, speinet_tpu/infer.py:219-226)."""
+        if os.path.exists(self.label_path):
+            return np.load(os.path.join(self.label_path, v + ".npy"))
+        frames = np.stack([load(p) for p in input_frames])
+        feats = video_features(frames, kernel_size=11, device=self.device)
+        return LogisticRegression.load(self.detector_pickle).predict(feats).reshape(-1)
 
     def infer(self):
         """Every video of the PNG tree; returns (mean PSNR, mean SSIM)."""
@@ -297,8 +407,8 @@ class Inference:
             for v in videos:
                 input_frames = sorted(glob.glob(os.path.join(self.input_path, v, "*")))
                 gt_frames = sorted(glob.glob(os.path.join(self.gt_path, v, "*")))
-                self.infer_video(v, input_frames, gt_frames,
-                                 self._labels_for_video(v), _read_png, pool)
+                labels = self._labels_for_video(v, input_frames, _read_png)
+                self.infer_video(v, input_frames, gt_frames, labels, _read_png, pool)
         sum_psnr = sum_ssim = 0.0
         n_img = 0
         for k in self.total_psnr:
@@ -324,32 +434,49 @@ def main(argv=None):
     from speinet_tpu_torch.config import parse_args as parse_config_args
 
     p = argparse.ArgumentParser(
-        description="SPEINet inference on PyTorch / CUDA (cached-video engine)",
+        description="SPEINet inference on PyTorch / CUDA",
         epilog="Any Config field (--template, --compute_dtype, ...) is also "
                "accepted and overlaid on the template.")
     p.add_argument("--save_image", type=lambda s: s.lower() != "false", default=True)
-    p.add_argument("--chop", action="store_true")
-    p.add_argument("--self_ensemble", action="store_true")
+    p.add_argument("--chop", action="store_true",
+                   help="4-tile spatial chopped forward")
+    p.add_argument("--default_data", type=str, default="",
+                   help="preset: " + " | ".join(PRESETS))
     p.add_argument("--data_path", type=str, default="./dataset/test")
     p.add_argument("--model_path", type=str, default="",
                    help="a port state_dict (.pt); empty = seeded random init")
     p.add_argument("--result_path", type=str, default="./infer_results")
-    p.add_argument("--batch_windows", type=int, default=1)
+    p.add_argument("--detector_pickle", type=str, default="",
+                   help="sharpness detector for trees without label/; empty = "
+                        "the packaged default")
+    p.add_argument("--self_ensemble", action="store_true",
+                   help="8-way flip / transpose ensemble (forward_x8)")
+    p.add_argument("--batch_windows", type=int, default=1,
+                   help="sliding windows per forward pass")
     p.add_argument("--cache_pyramids", action="store_true",
-                   help="reuse per-frame encoder features across windows "
-                        "(the only engine ported so far)")
+                   help="reuse per-frame encoder features across windows")
     p.add_argument("--device", type=str, default="cuda")
     argv = list(sys.argv[1:] if argv is None else argv)
     args, config_argv = p.parse_known_args(argv)
     cfg = parse_config_args(config_argv).replace(chop=args.chop)
+    if args.default_data:
+        if args.default_data not in PRESETS:
+            raise SystemExit(f"unknown preset {args.default_data}; "
+                             f"choose from {sorted(PRESETS)}")
+        dpath, rpath = PRESETS[args.default_data]
+        if args.data_path == "./dataset/test":
+            args.data_path = dpath
+        if args.result_path == "./infer_results":
+            args.result_path = rpath
     if torch.device(args.device).type == "cuda" and not any(
             a.split("=")[0] == "--compute_dtype" for a in config_argv):
         cfg = cfg.replace(compute_dtype="bfloat16")   # what the kernels take
     inf = Inference(cfg, args.data_path, args.model_path, args.result_path,
                     save_image=args.save_image, border=cfg.border,
+                    detector_pickle=args.detector_pickle or None,
+                    self_ensemble=args.self_ensemble,
                     batch_windows=args.batch_windows,
-                    cache_pyramids=args.cache_pyramids,
-                    self_ensemble=args.self_ensemble, device=args.device)
+                    cache_pyramids=args.cache_pyramids, device=args.device)
     try:
         inf.infer()
     finally:

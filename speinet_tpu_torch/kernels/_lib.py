@@ -28,13 +28,15 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
-SOURCES = ("conv.cu", "swin_block.cu", "roll.cu", "corr_banded.cu")
+SOURCES = ("conv.cu", "swin_block.cu", "roll.cu", "corr_banded.cu",
+           "corr_unfold.cu")
 HEADERS = ("tensor_core.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo")
 
 # launches per kernel wrapper since the last reset_launches()
-LAUNCHES = {"conv2d": 0, "swin_block": 0, "roll2d": 0, "banded_corr_argmax": 0}
+LAUNCHES = {"conv2d": 0, "swin_block": 0, "roll2d": 0, "banded_corr_argmax": 0,
+            "correlation_argmax_lds": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +49,7 @@ SIGNATURES = {
                            _I, _I, _F, _P],
     "speinet_roll2d": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     "speinet_banded_corr": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "speinet_corr_unfold": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -1,8 +1,11 @@
-"""K4 wrapper: banded 3x3-patch correlation max / argmax
-(`csrc/corr_banded.cu`).
+"""K4 and K5 wrappers: 3x3-patch correlation max / argmax.
 
-Replaces `speinet_tpu/ops/pallas_corr.py::banded_corr_argmax`. A CPU tensor
-takes the plain version; a CUDA tensor launches the kernel or raises.
+K4 `banded_corr_argmax` (`csrc/corr_banded.cu`) replaces
+`speinet_tpu/ops/pallas_corr.py::banded_corr_argmax` and works on the
+feature maps; K5 `correlation_argmax_lds` (`csrc/corr_unfold.cu`) replaces
+`correlation_argmax_pallas_lds` and works on explicit [B, 9C, L] unfolds,
+so a batch may mix reference layouts sample by sample. A CPU tensor takes
+the plain version; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -81,4 +84,77 @@ def banded_corr_argmax(lr_map: torch.Tensor, ref_map: torch.Tensor,
                                        _lib.stream_ptr(lr_map)),
                "banded_corr_argmax")
     _lib.LAUNCHES["banded_corr_argmax"] += 1
+    return s, idx
+
+
+def _check_lds_args(lr: torch.Tensor, ref: torch.Tensor,
+                    inv_ref: torch.Tensor) -> None:
+    if lr.ndim != 3 or ref.ndim != 3:
+        raise ValueError("correlation_argmax_lds takes [B, D, L] unfolds")
+    b, d, _ = lr.shape
+    if ref.shape[:2] != (b, d):
+        raise ValueError(f"reference {tuple(ref.shape)} does not match "
+                         f"query {tuple(lr.shape)}")
+    if inv_ref.shape != (b, ref.shape[2]):
+        raise ValueError(f"inv_ref {tuple(inv_ref.shape)} should be [B, Lr]")
+    for name, t in (("lr", lr), ("ref", ref), ("inv_ref", inv_ref)):
+        if not t.is_contiguous():
+            raise ValueError(f"correlation_argmax_lds: {name} must be contiguous")
+
+
+def scaled_reference(ref: torch.Tensor, inv_ref: torch.Tensor) -> torch.Tensor:
+    """ref * inv_ref per reference position, in ref's dtype: inv is cast to
+    that dtype first and the (exact) f32 product rounded to it, as the TPU
+    kernel scales its operand (pallas_corr.py:163)."""
+    inv = inv_ref.to(ref.dtype).float()[:, None, :]
+    return (ref.float() * inv).to(ref.dtype)
+
+
+def correlation_argmax_lds_plain(lr: torch.Tensor, ref: torch.Tensor,
+                                 inv_ref: torch.Tensor):
+    """S[i] = max_k <scaled ref[:, k], lr[:, i]> and its first argmax, with
+    the [Lr, L] product taken CHUNK reference positions at a time in f32."""
+    b, _, l = lr.shape
+    lr_len = ref.shape[2]
+    scaled = scaled_reference(ref, inv_ref)
+    lf = lr.float()
+    best = torch.full((b, l), float("-inf"), device=lr.device)
+    best_idx = torch.zeros((b, l), dtype=torch.int64, device=lr.device)
+    for q0 in range(0, lr_len, CHUNK):
+        q1 = min(q0 + CHUNK, lr_len)
+        r = torch.bmm(scaled[:, :, q0:q1].transpose(1, 2).float(), lf)  # [B, chunk, L]
+        cmax, carg = r.max(dim=1)
+        upd = cmax > best
+        best = torch.where(upd, cmax, best)
+        best_idx = torch.where(upd, carg + q0, best_idx)
+    return best, best_idx.to(torch.int32)
+
+
+def correlation_argmax_lds(lr: torch.Tensor, ref: torch.Tensor,
+                           inv_ref: torch.Tensor):
+    """lr [B, D, L], ref [B, D, Lr] raw unfolds, inv_ref [B, Lr] f32
+    -> (S [B, L] f32, idx [B, L] int32) of max_k <bf16(ref_k * inv_k), lr_i>.
+    Positions are padded to a multiple of 8 for the kernel's 16-byte rows
+    where L or Lr is not one (a copy; the padding is masked)."""
+    _check_lds_args(lr, ref, inv_ref)
+    if _lib.dispatch_device(lr, "correlation_argmax_lds") == "cpu":
+        return correlation_argmax_lds_plain(lr, ref, inv_ref)
+    dev = lr.device
+    _lib.require_cuda_tensor(lr, "lr", torch.bfloat16, dev)
+    _lib.require_cuda_tensor(ref, "ref", torch.bfloat16, dev)
+    _lib.require_cuda_tensor(inv_ref, "inv_ref", torch.float32, dev)
+    b, d, l = lr.shape
+    lr_len = ref.shape[2]
+    pad8 = lambda t: F.pad(t, (0, -t.shape[2] % 8)) if t.shape[2] % 8 else t
+    lr_p, ref_p = pad8(lr), pad8(ref)
+    s = torch.empty((b, l), dtype=torch.float32, device=dev)
+    idx = torch.empty((b, l), dtype=torch.int32, device=dev)
+    lib = _lib.library()
+    _lib.check(lib.speinet_corr_unfold(lr_p.data_ptr(), ref_p.data_ptr(),
+                                       inv_ref.data_ptr(), s.data_ptr(),
+                                       idx.data_ptr(), b, d, l, lr_p.shape[2],
+                                       lr_len, ref_p.shape[2],
+                                       _lib.stream_ptr(lr)),
+               "correlation_argmax_lds")
+    _lib.LAUNCHES["correlation_argmax_lds"] += 1
     return s, idx

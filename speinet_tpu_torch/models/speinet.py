@@ -1,10 +1,11 @@
-"""SPEINet's cached-video inference path (port of
-`speinet_tpu/models/speinet.py`; parity: model/speinet.py).
+"""SPEINet's inference forward (port of `speinet_tpu/models/speinet.py`;
+parity: model/speinet.py).
 
-Input frames are [F, 3, H, W] floats in [0, rgb_range]; feature maps are
-NHWC in the compute dtype; parameters are float32 and are cast at use.
-The three methods split the forward of one window so a video engine can
-reuse per-frame work across sliding windows:
+Input frames are floats in [0, rgb_range]; feature maps are NHWC in the
+compute dtype; parameters are float32 and are cast at use.
+`forward(x)` restores the centre frame of [B, 5, 3, H, W] windows with
+per-sample routing, as `SPEINet.__call__` does. Three more methods split
+that forward so a video engine can reuse per-frame work across windows:
     encode_window_legs   enc(f) + enc(RL5(f)) and enc(f) + enc(RL1(f))
     anchor_pyramid       the sharp anchor's encoder pyramid
     restore_from_features  Swin fusion of both neighbours, fusion conv,
@@ -67,7 +68,7 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
 
 
 class SPEINet(nn.Module):
-    """Parity: model/speinet.py:28-168 (cached-video methods only)."""
+    """Parity: model/speinet.py:28-168 (inference)."""
 
     def __init__(self, n_sequence: int = 3, n_feat: int = 32,
                  n_resblock: int = 3, out_channels: int = 3,
@@ -78,7 +79,8 @@ class SPEINet(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if n_sequence != 3:
-            raise NotImplementedError("the cached engine takes 3-frame windows")
+            raise NotImplementedError("the port takes 3-frame windows "
+                                      "(n_sequence 3)")
         f = n_feat
         self.dtype = dtype
         self.recons_net = ReconsVideo(f, n_resblock, out_channels)
@@ -184,12 +186,43 @@ class SPEINet(nn.Module):
 
     @torch.no_grad()
     def restore_from_features(self, f_mid, neighbor_feats, sharp_lv1, sharp_lv2,
-                              sharp_lv3, routing: str) -> torch.Tensor:
+                              sharp_lv3, routing: str,
+                              has_sharp: torch.Tensor | None = None) -> torch.Tensor:
         """Fusion + transfer + decode for a batch whose routing the host
-        knows ('sharp' or 'self'). Returns [B, 3, H, W] float32."""
+        knows ('sharp' or 'self'), or per sample ('mixed', with `has_sharp`
+        [B] bool). Returns [B, 3, H, W] float32."""
         f_fusion = self._fuse(f_mid, neighbor_feats)
         f_fusion = self._c1(self.fusion, f_fusion)
         weight_s, t3, t2, t1 = transfer(self.SelfTransfer, f_fusion, sharp_lv1,
-                                        sharp_lv2, sharp_lv3, routing, self.dtype)
+                                        sharp_lv2, sharp_lv3, routing, self.dtype,
+                                        has_sharp)
         out = self._decode(f_fusion, weight_s.to(self.dtype), t3, t2, t1)
         return out.permute(0, 3, 1, 2).float()
+
+    @torch.no_grad()
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, 5, 3, H, W]: frames t-1, t, t+1, the pre-sharp and the
+        sub-sharp frame -> the restored centre frame [B, 3, H, W] float32
+        (parity: speinet.py:215-274). A sample routes to the sharp search
+        when frame 3 is not all zero, while the sharp pyramid encodes frame
+        4: the reference's quirk, kept. RL5 of the centre frame, RL1 of both
+        neighbours and all seven encoder legs run as batched calls."""
+        dt = self.dtype
+        b = x.shape[0]
+        has_sharp = ~(x[:, 3] == 0).flatten(1).all(dim=1)
+        nhwc = x.permute(0, 1, 3, 4, 2)
+        prev, mid, nxt = (nhwc[:, i].to(dt) for i in range(3))
+        sharp = nhwc[:, 4].to(dt)
+        kernel = box_kernel(5, device=x.device)
+        rl = lambda t, n: richardson_lucy(t.permute(0, 3, 1, 2).float(), kernel, n,
+                                          0.01, box_size=5).permute(0, 2, 3, 1).to(dt)
+        deb_mid = rl(mid, 5)
+        deb_nb = rl(torch.cat([prev, nxt], dim=0), 1)
+        enc_in = torch.cat([sharp, mid, deb_mid, prev, deb_nb[:b], nxt, deb_nb[b:]],
+                           dim=0).contiguous()
+        lv1, lv2, lv3 = self.recons_net.encode_pyramid(enc_in, dt)
+        leg = lambda k: lv3[k * b:(k + 1) * b]
+        f_mid = leg(1) + leg(2)
+        neighbor_feats = (leg(3) + leg(4), leg(5) + leg(6))
+        return self.restore_from_features(f_mid, neighbor_feats, lv1[:b], lv2[:b],
+                                          lv3[:b], "mixed", has_sharp)

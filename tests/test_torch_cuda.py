@@ -69,6 +69,34 @@ def test_banded_corr_kernel(gen, hw, ref_hw):
     assert agree > 0.99
 
 
+@pytest.mark.parametrize("h,w", [(180, 320), (95, 165)])
+def test_corr_unfold_kernel(gen, h, w):
+    """K5 on a mixed batch (sharp unfold, permuted self reference) at 720p
+    lv3 and at a chop tile's lv3 (L = 15,675: padded to a multiple of 8)."""
+    from speinet_tpu_torch.kernels.corr import scaled_reference
+    from speinet_tpu_torch.models.search_transfer import (mixed_reference,
+                                                          patch_inv_norms)
+
+    f = torch.rand((2, h, w, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    sharp = torch.rand((2, h, w, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    hs = torch.tensor([True, False], device="cuda")
+    lr, ref, inv = (t.contiguous() for t in
+                    mixed_reference(f, sharp, hs, patch_inv_norms(f)))
+    kernels.reset_launches()
+    s, idx = kernels.correlation_argmax_lds(lr, ref, inv)
+    assert kernels.LAUNCHES["correlation_argmax_lds"] == 1
+    s_p, idx_p = kernels.correlation_argmax_lds_plain(lr, ref, inv)
+    # the same bf16 operands summed in f32 in another order
+    tol = 1e-5 * max(s_p.abs().max().item(), 1.0)
+    assert (s - s_p).abs().max().item() <= tol
+    # an index may differ only where it attains the max within tol
+    bi, p = (idx != idx_p).nonzero(as_tuple=True)
+    if bi.numel():
+        sc = scaled_reference(ref, inv)
+        at_k = (lr[bi, :, p].float() * sc[bi, :, idx[bi, p].long()].float()).sum(1)
+        assert (at_k - s_p[bi, p]).abs().max().item() <= tol
+
+
 @pytest.mark.parametrize("shift,pad_h,pad_w", [(0, 0, 0), (2, 0, 0), (2, 3, 1)])
 def test_swin_block_kernel(gen, shift, pad_h, pad_w):
     from speinet_tpu_torch.models.swinir import relative_position_index

@@ -1,12 +1,13 @@
-"""The port's cached-video engine against speinet_tpu.infer.Inference
-(cache_pyramids=True) on one synthetic PNG tree, on the CPU.
+"""The port's inference engines against speinet_tpu.infer.Inference on
+synthetic PNG trees, on the CPU.
 
 Same weights on both sides (a seeded port init carried to the flax tree,
 BatchNorm statistics perturbed with numpy). The 14-frame video with sharp
 labels at frames 0 and 13 gives, at 2 windows per chunk, all-sharp chunks,
 all-self chunks (has_sharp=False: the pre-sharp frame is >7 frames away)
-and one mixed chunk, which the port splits on the host. Per-frame PSNR must
-agree within 0.01 dB and SSIM within 1e-4.
+and one mixed chunk. Per-frame PSNR must agree within 0.01 dB and SSIM
+within 1e-4, for the cached engine, the direct engine, --self_ensemble and
+--chop; a tree without label/ is labelled by the detector on both sides.
 """
 
 import os
@@ -67,45 +68,79 @@ def _shared_weights():
     return params, bstats
 
 
-def test_cached_engine_matches_jax_engine(tmp_path, monkeypatch):
-    labels = np.zeros(14, np.int64)
-    labels[[0, 13]] = 1
-    root = _tree(tmp_path / "ds", 14, labels)
+def _both_engines(tmp_path, monkeypatch, root, chop=False, **kw):
+    """(JAX engine, port engine) on the same tree and weights; neither has
+    run yet."""
     params, bstats = _shared_weights()
-
     monkeypatch.setattr(JInference, "_load_weights",
                         lambda self, path: (params, bstats))
-    cfg_j = j_set_template(JConfig(template="SPEINet")).replace(dp_devices=1, **SMALL)
+    cfg_j = j_set_template(JConfig(template="SPEINet")).replace(
+        dp_devices=1, chop=chop, chop_shave=8, **SMALL)
     inf_j = JInference(cfg_j, str(root), model_path="",
                        result_path=str(tmp_path / "res_jax"), save_image=False,
-                       batch_windows=2, cache_pyramids=True)
-    inf_j.infer()
-
+                       batch_windows=2, **kw)
     pt = tmp_path / "port.pt"
     torch.save(from_flax_params(params, bstats, depths=(2,)), pt)
-    cfg = set_template(Config(template="SPEINet")).replace(**SMALL)
+    cfg = set_template(Config(template="SPEINet")).replace(chop=chop, chop_shave=8,
+                                                           **SMALL)
     inf = Inference(cfg, str(root), model_path=str(pt),
                     result_path=str(tmp_path / "res_port"), save_image=False,
-                    batch_windows=2, device="cpu")
+                    batch_windows=2, device="cpu", **kw)
+    return inf_j, inf
+
+
+def _assert_same_metrics(inf, inf_j, n):
+    assert len(inf.total_psnr["video00"]) == n
+    np.testing.assert_allclose(inf.total_psnr["video00"], inf_j.total_psnr["video00"],
+                               rtol=0, atol=0.01)
+    np.testing.assert_allclose(inf.total_ssim["video00"], inf_j.total_ssim["video00"],
+                               rtol=0, atol=1e-4)
+
+
+def _mixed_labels():
+    labels = np.zeros(14, np.int64)
+    labels[[0, 13]] = 1
+    return labels
+
+
+def test_cached_engine_matches_jax_engine(tmp_path, monkeypatch):
+    root = _tree(tmp_path / "ds", 14, _mixed_labels())
+    inf_j, inf = _both_engines(tmp_path, monkeypatch, root, cache_pyramids=True)
+    inf_j.infer()
     calls = []
     orig = inf.model.restore_from_features
 
     def spy(*args):
-        calls.append((args[-1], args[0].shape[0]))
+        calls.append((args[5], args[0].shape[0]))
         return orig(*args)
 
     inf.model.restore_from_features = spy
     inf.infer()
     inf.close()
 
-    # sharp chunks, self chunks, and one mixed chunk split into 1 + 1
+    # sharp chunks, self chunks, and the mixed chunk as one 'mixed' call
     assert ("sharp", 2) in calls and ("self", 2) in calls
-    assert ("sharp", 1) in calls and ("self", 1) in calls
-    assert len(inf.total_psnr["video00"]) == 14
-    np.testing.assert_allclose(inf.total_psnr["video00"], inf_j.total_psnr["video00"],
-                               rtol=0, atol=0.01)
-    np.testing.assert_allclose(inf.total_ssim["video00"], inf_j.total_ssim["video00"],
-                               rtol=0, atol=1e-4)
+    assert ("mixed", 2) in calls
+    assert all(r != "mixed" for r, _ in calls[:3] + calls[4:]), calls
+    _assert_same_metrics(inf, inf_j, 14)
+
+
+@pytest.mark.parametrize("mode", ["direct", "self_ensemble", "chop"])
+def test_direct_engine_matches_jax_engine(tmp_path, monkeypatch, mode):
+    """The direct engine (SPEINet.forward with per-sample routing), with
+    --self_ensemble or --chop (shave 8: four 32x40 tiles of each 48x64
+    frame, one batched forward). 10 frames keep the 8x ensemble short; the
+    sharp labels at 0 and 9 still give sharp, self and mixed chunks."""
+    n = 14 if mode == "direct" else 10
+    labels = np.zeros(n, np.int64)
+    labels[[0, n - 1]] = 1
+    root = _tree(tmp_path / "ds", n, labels)
+    inf_j, inf = _both_engines(tmp_path, monkeypatch, root, chop=mode == "chop",
+                               self_ensemble=mode == "self_ensemble")
+    inf_j.infer()
+    inf.infer()
+    inf.close()
+    _assert_same_metrics(inf, inf_j, n)
 
 
 def test_cli_runs_cached_engine_and_writes_the_log(tmp_path, capsys):
@@ -123,17 +158,30 @@ def test_cli_runs_cached_engine_and_writes_the_log(tmp_path, capsys):
     assert text.count("> video00-") == 4
     assert "# Total AVG-PSNR=" in text
     assert len(list((res / "video00").glob("*.png"))) == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(args)                                    # the direct engine
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the direct engine, alone and with each option, writes a log of its own
+    for extra in ([], ["--self_ensemble"], ["--chop", "--chop_shave", "8"]):
+        main(args + extra)
+    logs = list(res.glob("inference_log_*.txt"))
+    assert sum(p.read_text().count("> video00-") for p in logs) == 16
+    with pytest.raises(ValueError, match="direct engine"):
         main(args + ["--cache_pyramids", "--chop"])
 
 
-def test_missing_labels_name_the_detector(tmp_path):
-    root = _tree(tmp_path / "ds", 3, labels=None, h=40, w=40)
-    cfg = set_template(Config(template="SPEINet")).replace(**SMALL)
-    inf = Inference(cfg, str(root), model_path="", result_path=str(tmp_path / "r"),
-                    save_image=False, device="cpu")
-    with pytest.raises(FileNotFoundError, match="detector"):
-        inf.infer()
+def test_missing_labels_name_the_detector(tmp_path, monkeypatch):
+    """A tree without label/ is labelled by the packaged detector, as the
+    JAX engine labels it (speinet_tpu/infer.py:219-226)."""
+    root = _tree(tmp_path / "ds", 6, labels=None, h=40, w=40)
+    inf_j, inf = _both_engines(tmp_path, monkeypatch, root)
+    got = {}
+    orig = inf.infer_video
+
+    def spy(v, input_frames, gt_frames, labels, *args):
+        got["labels"] = labels
+        return orig(v, input_frames, gt_frames, labels, *args)
+
+    inf.infer_video = spy
+    inf.infer()
     inf.close()
+    frames = [str(root / "blur" / "video00" / f"{i:08d}.png") for i in range(6)]
+    want = inf_j._labels_for_video("video00", frames)
+    np.testing.assert_array_equal(got["labels"], want)

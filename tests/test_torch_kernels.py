@@ -1,4 +1,4 @@
-"""The plain versions of the port's kernels K1-K4 against the JAX package's
+"""The plain versions of the port's kernels K1-K5 against the JAX package's
 Pallas kernels (interpret mode) and against its XLA paths, on the CPU.
 
 Same numpy inputs from a seed on both sides, float32; rtol/atol 1e-4
@@ -17,8 +17,8 @@ from speinet_tpu.models.search_transfer import correlation_argmax
 from speinet_tpu.ops.patch_ops import unfold
 from speinet_tpu_torch.kernels import (SwinBlockWeights, banded_corr_argmax_plain,
                                        block_errors, block_errors_pass,
-                                       conv2d_plain, roll2d_plain,
-                                       swin_block_plain)
+                                       conv2d_plain, correlation_argmax_lds_plain,
+                                       roll2d_plain, swin_block_plain)
 from speinet_tpu_torch.models.swinir import SwinBlock as TSwinBlock
 from speinet_tpu_torch.models.swinir import relative_position_index
 from speinet_tpu_torch.utils.convert import _swin_block
@@ -279,3 +279,70 @@ def test_corr_plain_matches_normalized_unfold_xla(routing):
     cos = np.einsum("bdl,bdq->blq", np.asarray(nrm(lr)), np.asarray(nrm(rf)))
     at = np.take_along_axis(cos, idx.numpy()[..., None].astype(np.int64), 2)[..., 0]
     _assert_idx_close(idx.numpy(), np.asarray(i_x), at, np.asarray(s_x), 1e-5)
+
+
+# --- K5 correlation_argmax_lds ----------------------------------------------
+
+def _lds_inputs(seed, b=2, d=72, l=30, lr_len=37, pow2_inv=False):
+    """Raw unfold-shaped operands; Lr = 37 is no multiple of the 16-wide
+    reference tiles of the Pallas run, so its masked tail is exercised."""
+    rng = np.random.default_rng(seed)
+    lr = rng.standard_normal((b, d, l)).astype(np.float32)
+    ref = rng.standard_normal((b, d, lr_len)).astype(np.float32)
+    if pow2_inv:
+        inv = (2.0 ** -rng.integers(0, 4, (b, lr_len))).astype(np.float32)
+    else:
+        inv = (1.0 / (1.0 + rng.random((b, lr_len)))).astype(np.float32)
+    return lr, ref, inv
+
+
+def _assert_lds_close(s, idx, lr, scaled, s_ref, idx_ref):
+    """S to 1e-5 relative; an index may differ from the reference's only
+    where it attains the maximum within that tolerance."""
+    tol = 1e-5 * max(np.abs(s_ref).max(), 1.0)
+    np.testing.assert_allclose(s, s_ref, rtol=0, atol=tol)
+    scores = np.einsum("bdk,bdl->blk", scaled, lr)
+    at = np.take_along_axis(scores, idx[..., None].astype(np.int64), 2)[..., 0]
+    _assert_idx_close(idx, idx_ref, at, s_ref, tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_corr_lds_plain_matches_pallas(interpret, dtype):
+    """Against _corr_impl_lds (the kernel's body in interpret mode). In bf16
+    the scales are powers of two, so bf16(ref * inv) is exact: on the CPU,
+    XLA drops the kernel's bf16 rounding of the scaled operand (it keeps
+    the f32 product), which the TPU's MXU, taking a bf16 operand, cannot;
+    the next test holds that rounding to the JAX package's own."""
+    import speinet_tpu.ops.pallas_corr as pc
+
+    lr, ref, inv = _lds_inputs(18, pow2_inv=dtype == "bfloat16")
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    lr_j, ref_j = jnp.asarray(lr).astype(jdt), jnp.asarray(ref).astype(jdt)
+    s_j, i_j = pc._corr_impl_lds(lr_j, ref_j, jnp.asarray(inv), tl=16, tk=16)
+    lr_t, ref_t = _t(lr).to(tdt), _t(ref).to(tdt)
+    s, idx = correlation_argmax_lds_plain(lr_t, ref_t, _t(inv))
+    assert s.dtype == torch.float32 and idx.dtype == torch.int32
+    scaled = np.asarray(ref_j.astype(jnp.float32)) * inv[:, None, :]
+    _assert_lds_close(s.numpy(), idx.numpy(), np.asarray(lr_j.astype(jnp.float32)),
+                      scaled, np.asarray(s_j), np.asarray(i_j))
+
+
+def test_corr_lds_plain_rounds_the_scaled_operand_like_the_tpu(interpret):
+    """bf16 with general scales: the plain version rounds bf16(ref) *
+    bf16(inv) to bf16 before the product, as the TPU kernel does
+    (pallas_corr.py:163). The JAX package's twin that scales on the host,
+    _corr_impl_ld on `ref * inv.astype(bf16)` (its SPEINET_CORR_SCALED=0
+    path, documented bit-identical), is the reference."""
+    import speinet_tpu.ops.pallas_corr as pc
+
+    lr, ref, inv = _lds_inputs(19)
+    lr_j = jnp.asarray(lr).astype(jnp.bfloat16)
+    ref_j = jnp.asarray(ref).astype(jnp.bfloat16)
+    scaled_j = ref_j * jnp.asarray(inv).astype(jnp.bfloat16)[:, None, :]
+    s_j, i_j = pc._corr_impl_ld(lr_j, scaled_j, tl=16, tk=16)
+    s, idx = correlation_argmax_lds_plain(_t(lr).bfloat16(), _t(ref).bfloat16(),
+                                          _t(inv))
+    _assert_lds_close(s.numpy(), idx.numpy(), np.asarray(lr_j.astype(jnp.float32)),
+                      np.asarray(scaled_j.astype(jnp.float32)), np.asarray(s_j),
+                      np.asarray(i_j))

@@ -161,8 +161,10 @@ def test_swinir_cross(shared, h, w):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("routing", ["sharp", "self"])
+@pytest.mark.parametrize("routing", ["sharp", "self", "mixed"])
 def test_transfer_unit(shared, routing):
+    """'sharp' / 'self' through K4's plain version, 'mixed' (sample 0 sharp,
+    sample 1 self) through K5's on unfolds, against TransferUnit."""
     variables, port = shared
     rng = np.random.default_rng(23)
     b, h, w, f = 2, 6, 8, 8
@@ -170,19 +172,21 @@ def test_transfer_unit(shared, routing):
     lv1 = rng.standard_normal((b, 4 * h, 4 * w, f)).astype(np.float32)
     lv2 = rng.standard_normal((b, 2 * h, 2 * w, 2 * f)).astype(np.float32)
     lv3 = rng.standard_normal((b, h, w, 4 * f)).astype(np.float32)
-    hs = jnp.asarray([routing == "sharp"] * b)
+    hs = np.array([True, False]) if routing == "mixed" else np.array(
+        [routing == "sharp"] * b)
     want = JTransfer(n_feat=f).apply(_sub(variables, "transfer"), *map(
-        jnp.asarray, (ff, lv1, lv2, lv3)), hs, routing=routing)
+        jnp.asarray, (ff, lv1, lv2, lv3)), jnp.asarray(hs), routing=routing)
     got = transfer(port.SelfTransfer, *map(_t, (ff, lv1, lv2, lv3)),
-                   routing, F32)
+                   routing, F32, has_sharp=torch.from_numpy(hs))
     for g, wnt in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(wnt), **TOL)
 
 
 def test_transfer_rejects_mixed(shared):
+    """Routing 'mixed' needs its per-sample has_sharp flags."""
     _, port = shared
     z = torch.zeros((1, 4, 4, 32))
-    with pytest.raises(NotImplementedError, match="K5"):
+    with pytest.raises(ValueError, match="has_sharp"):
         transfer(port.SelfTransfer, z, torch.zeros((1, 16, 16, 8)),
                  torch.zeros((1, 8, 8, 16)), z, "mixed", F32)
 
@@ -206,14 +210,33 @@ def test_speinet_cached_methods(shared, h, w):
         np.testing.assert_allclose(g.numpy(), np.asarray(wnt), **TOL)
     m, n = (np.asarray(a) for a in jm_legs)
     p = [np.asarray(a) for a in j_anchor]
-    for routing in ("sharp", "self"):
-        want = jm.apply(variables, jnp.asarray(m[1:2]),
-                        (jnp.asarray(n[0:1]), jnp.asarray(n[2:3])),
-                        *map(jnp.asarray, p), jnp.asarray([routing == "sharp"]),
-                        routing=routing, method=JSPEINet.restore_from_features)
+    for routing in ("sharp", "self", "mixed"):
+        hs = np.array([routing != "self"])
+        restore = jax.jit(lambda v, *a, r=routing: jm.apply(
+            v, *a, routing=r, method=JSPEINet.restore_from_features))
+        want = restore(variables, jnp.asarray(m[1:2]),
+                       (jnp.asarray(n[0:1]), jnp.asarray(n[2:3])),
+                       *map(jnp.asarray, p), jnp.asarray(hs))
         got = port.restore_from_features(
             _t(m[1:2]), (_t(n[0:1]), _t(n[2:3])),
-            *map(_t, p), routing)
+            *map(_t, p), routing, torch.from_numpy(hs))
         assert got.shape == (1, 3, h, w)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
                                    err_msg=routing)
+
+
+@pytest.mark.parametrize("h,w", [(40, 40), (48, 64)])
+def test_speinet_forward(shared, h, w):
+    """SPEINet.forward against SPEINet.__call__ on a 3-sample batch: one
+    sample with both sharp frames, one with frame 3 zeroed (routed to the
+    self reference although frame 4 is kept), one with only frame 4 zeroed
+    (routed to the sharp search of an all-zero pyramid)."""
+    variables, port = shared
+    jm = JSPEINet(**TINY, drop_path_rate=0.0)
+    x = np.stack([_frames(5, h, w, seed=30 + k) for k in range(3)])
+    x[1, 3] = 0.0
+    x[2, 4] = 0.0
+    want = jax.jit(jm.apply)(variables, jnp.asarray(x))
+    got = port(torch.from_numpy(x))
+    assert got.shape == (3, 3, h, w)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

@@ -79,6 +79,29 @@ def test_cli_computes_in_bf16_on_the_card(tmp_path, monkeypatch, argv, dtype):
         main(["--data_path", str(tmp_path), "--cache_pyramids", *argv])
 
 
+@pytest.mark.parametrize("argv,data,result", [
+    (["--default_data", "GOPRO"], "./data/deblur/GOPRO/test", "./infer_results/gopro"),
+    (["--default_data", "BSD", "--data_path", "mine"], "mine", "./infer_results/bsd"),
+    ([], "./dataset/test", "./infer_results")])
+def test_cli_default_data_presets(monkeypatch, argv, data, result):
+    """--default_data fills the paths the caller left at their defaults
+    (speinet_tpu/infer.py:517-532)."""
+    import speinet_tpu_torch.infer as infer_mod
+
+    class Built(Exception):
+        pass
+
+    def record(cfg, data_path, model_path, result_path, **kwargs):
+        raise Built(data_path, result_path)
+
+    monkeypatch.setattr(infer_mod, "Inference", record)
+    with pytest.raises(Built) as e:
+        main(["--device", "cpu", *argv])
+    assert e.value.args == (data, result)
+    with pytest.raises(SystemExit, match="unknown preset"):
+        main(["--device", "cpu", "--default_data", "NOPE"])
+
+
 def test_card_takes_bf16_only(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="bfloat16"):
@@ -91,6 +114,7 @@ def _wrapper_calls():
     w = torch.rand((3, 3, 32, 16), generator=g)
     b = torch.rand((16,), generator=g)
     inv = torch.rand((1, 100), generator=g)
+    unf = lambda t: t.reshape(1, 100, 32).transpose(1, 2).contiguous()
     from speinet_tpu_torch.kernels.swin import SwinBlockWeights
 
     c, hid = 32, 64
@@ -103,6 +127,9 @@ def _wrapper_calls():
         ("roll2d", lambda t: kernels.roll2d(t, 2, 2), lambda t: kernels.roll2d_plain(t, 2, 2)),
         ("banded_corr_argmax", lambda t: kernels.banded_corr_argmax(t, t, inv)[0],
          lambda t: kernels.banded_corr_argmax_plain(t, t, inv)[0]),
+        ("correlation_argmax_lds",
+         lambda t: kernels.correlation_argmax_lds(unf(t), unf(t), inv)[0],
+         lambda t: kernels.correlation_argmax_lds_plain(unf(t), unf(t), inv)[0]),
         ("swin_block", lambda t: kernels.swin_block(t, t, wts, 5, 0, 0, 0, 4),
          lambda t: kernels.swin_block_plain(t, t, wts, 5, 0, 0, 0, 4)),
     ], x
@@ -120,9 +147,13 @@ def test_other_devices_raise():
     calls, x = _wrapper_calls()
     xm = x.to("meta")
     for name, fn, _ in calls:
+        inv_meta = torch.empty((1, 100), device="meta")
         if name == "banded_corr_argmax":
-            fn = lambda t: kernels.banded_corr_argmax(t, t, torch.empty((1, 100),
-                                                                        device="meta"))
+            fn = lambda t: kernels.banded_corr_argmax(t, t, inv_meta)
+        elif name == "correlation_argmax_lds":
+            fn = lambda t: kernels.correlation_argmax_lds(
+                t.reshape(1, 100, 32).transpose(1, 2).contiguous(),
+                t.reshape(1, 100, 32).transpose(1, 2).contiguous(), inv_meta)
         with pytest.raises(ValueError, match="device"):
             fn(xm)
 
