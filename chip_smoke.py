@@ -6,24 +6,34 @@ NVIDIA H100.
 
 Run from the root of a checkout on a machine with one CUDA card and the CUDA
 toolkit. In order it:
-1. builds the five hand-written kernels from `speinet_tpu_torch/csrc/`;
+1. builds the ten hand-written kernels (K1-K10) from
+   `speinet_tpu_torch/csrc/`, one nvcc per source, all started together;
 2. holds each kernel against its plain PyTorch version on the card, in
    bf16 at the shapes of the 720p paths, and times kernel, plain version
    and (where one PyTorch call computes the same function) the library
-   call, beside the least time the card could take;
-3. runs both inference engines (`Inference.infer_video`) on a synthetic
-   12-frame 1280x720 video at the full width of the SPEINet template
-   (n_feat 32, embed_dim 256, depths 6x6, 8 heads, window 5, bf16) with
-   seeded random weights and 2 windows per chunk, so 'sharp', 'self' and a
-   mixed chunk all occur: the cached engine (K1-K5; the mixed chunk is one
-   'mixed' restore through K5) and the direct engine (SPEINet.forward,
-   per-sample routing through K5), whose frames must agree with the
-   cached engine's at 40 dB or more; the launch counts of each run, reset
-   just before it, show every kernel of its path was launched;
+   call, beside the least time the card could take; K6 must equal K5 bit
+   for bit on the same operands, and the checks of K2 and K8 must reject
+   two planted faults each;
+3. runs four main paths on a synthetic 12-frame 1280x720 video at the full
+   width of the SPEINet template (n_feat 32, embed_dim 256, depths 6x6, 8
+   heads, window 5, bf16) with seeded random weights and 2 windows per
+   chunk, so 'sharp', 'self' and a mixed chunk all occur:
+   - `cached`: the cached engine (K1-K5, K10; the mixed chunk is one
+     'mixed' restore through K5);
+   - `direct`: the direct engine (SPEINet.forward, per-sample routing
+     through K5);
+   - `split`: the cached engine with swin_fuse_block=False, corr_raw=False
+     (K8 + K9 per Swin block, normalized unfolds through K7);
+   - `prescaled`: the cached engine with corr_banded=False,
+     corr_scaled=False (host-scaled unfolds through K6);
+   the last three must agree with the cached engine's frames at 40 dB or
+   more; the launch counts of each run, reset just before it, show every
+   kernel of its path was launched and none of the path it replaces;
 4. checks the port on the card against the port's float32 plain path on
    the CPU, same weights, at 80x80: the cached restore in both routings,
    the direct forward on a mixed batch, the self-ensemble and the chopped
-   forward; and the sharpness detector's labels of the video;
+   forward, then the restores and the mixed forward of the `split`
+   configuration; and the sharpness detector's labels of the video;
 5. prints the `kernels` JSON line, the card's name and power limit, and as
    the last line {"ok": true, "device": {...}}.
 
@@ -271,7 +281,7 @@ def check_corr_unfold(rng_seed: int):
     from speinet_tpu_torch.kernels import (correlation_argmax_lds,
                                           correlation_argmax_lds_plain)
     from speinet_tpu_torch.kernels.corr import scaled_reference
-    from speinet_tpu_torch.models.search_transfer import (mixed_reference,
+    from speinet_tpu_torch.models.search_transfer import (unfold_reference,
                                                           patch_inv_norms)
 
     g = torch.Generator(device="cuda").manual_seed(rng_seed)
@@ -280,7 +290,8 @@ def check_corr_unfold(rng_seed: int):
     for h, w in ((180, 320), (95, 165)):
         f = torch.rand((2, h, w, 128), generator=g, device="cuda").to(torch.bfloat16)
         sharp = torch.rand((2, h, w, 128), generator=g, device="cuda").to(torch.bfloat16)
-        lr, ref, inv = mixed_reference(f, sharp, has_sharp, patch_inv_norms(f))
+        lr, ref, inv = unfold_reference(f, sharp, "mixed", has_sharp,
+                                        patch_inv_norms(f))
         lr, ref, inv = lr.contiguous(), ref.contiguous(), inv.contiguous()
         s, idx = correlation_argmax_lds(lr, ref, inv)
         s_p, idx_p = correlation_argmax_lds_plain(lr, ref, inv)
@@ -314,6 +325,222 @@ def check_corr_unfold(rng_seed: int):
     return rows
 
 
+def _corr_rule(what, s, idx, s_p, idx_p, score_at):
+    """K4's rule: S within 1e-5 of its scale (the same bf16 products summed
+    in f32 in another order); an index may differ from the plain version's
+    only where it attains the max within that. Returns (err, tol, number of
+    differing indices)."""
+    err = (s - s_p).abs().max().item()
+    tol = 1e-5 * max(s_p.abs().max().item(), 1.0)
+    if not err <= tol:
+        raise AssertionError(f"{what}: max |S err| {err} > {tol}")
+    diff = (idx != idx_p).nonzero()
+    if diff.numel():
+        bi, p = diff[:, 0], diff[:, 1]
+        gap = (score_at(bi, p, idx[bi, p].long()) - s_p[bi, p]).abs().max().item()
+        if not gap <= tol:
+            raise AssertionError(f"{what}: index off the max by {gap}")
+    return err, tol, int(diff.shape[0])
+
+
+def _mixed_maps(g, h, w):
+    """A query map and a sharp map at the lv3 of an h x w map pair, and the
+    mixed batch's flags (sample 0 sharp, sample 1 self)."""
+    import torch
+
+    f = torch.rand((2, h, w, 128), generator=g, device="cuda").to(torch.bfloat16)
+    sharp = torch.rand((2, h, w, 128), generator=g, device="cuda").to(torch.bfloat16)
+    return f, sharp, torch.tensor([True, False], device="cuda")
+
+
+def check_corr_ld(rng_seed: int):
+    """K6 on the host-scaled mixed batch of check_corr_unfold: S and idx
+    equal to K5's on the raw operands, and K4's rule against its plain
+    version."""
+    import torch
+    from speinet_tpu_torch.kernels import (correlation_argmax_ld,
+                                          correlation_argmax_ld_plain,
+                                          correlation_argmax_lds)
+    from speinet_tpu_torch.kernels.corr import scaled_reference
+    from speinet_tpu_torch.models.search_transfer import (patch_inv_norms,
+                                                          unfold_reference)
+
+    g = torch.Generator(device="cuda").manual_seed(rng_seed)
+    rows = []
+    for h, w in ((180, 320), (95, 165)):
+        f, sharp, hs = _mixed_maps(g, h, w)
+        lr, ref, inv = (t.contiguous() for t in unfold_reference(
+            f, sharp, "mixed", hs, patch_inv_norms(f)))
+        sc = scaled_reference(ref, inv)
+        s, idx = correlation_argmax_ld(lr, sc)
+        s5, idx5 = correlation_argmax_lds(lr, ref, inv)
+        s_p, idx_p = correlation_argmax_ld_plain(lr, sc)
+        torch.cuda.synchronize()
+        if not (torch.equal(s, s5) and torch.equal(idx, idx5)):
+            raise AssertionError(f"corr_ld {h}x{w}: K6 on the scaled reference "
+                                 f"differs from K5 on the raw one")
+        err, tol, nd = _corr_rule(f"corr_ld {h}x{w}", s, idx, s_p, idx_p,
+                                  lambda bi, p, k: (lr[bi, :, p].float()
+                                                    * sc[bi, :, k].float()).sum(1))
+        ms = time_ms(lambda: correlation_argmax_ld(lr, sc), iters=3, warmup=1)
+        plain_ms = time_ms(lambda: correlation_argmax_ld_plain(lr, sc),
+                           iters=1, warmup=1)
+        b, d, l = lr.shape
+        flops = 2.0 * b * l * sc.shape[2] * d
+        bms, by = bound(flops, nbytes(lr, sc, s, idx))
+        rows.append(dict(shape=f"mixed B=2 D=1152 L=Lr={l} ({h}x{w}x128)",
+                         equal_to_k5=True, max_abs_err=err, tol=tol,
+                         idx_differs=nd, ms=ms, plain_ms=plain_ms, library_ms=None,
+                         bound_ms=bms, bound_by=by, flops=flops))
+    return rows
+
+
+def check_corr_rows(rng_seed: int):
+    """K7 on L2-normalized mixed batches (sample 0 against a sharp map,
+    sample 1 against its self reference), the reference as [B, Lr, D]."""
+    import torch
+    from speinet_tpu_torch.kernels import correlation_argmax, correlation_argmax_plain
+    from speinet_tpu_torch.models.search_transfer import normalized_reference
+
+    g = torch.Generator(device="cuda").manual_seed(rng_seed)
+    rows = []
+    for h, w in ((180, 320), (95, 165)):
+        f, sharp, hs = _mixed_maps(g, h, w)
+        lr_n, ref_n = normalized_reference(f, sharp, "mixed", hs)
+        lr_n = lr_n.to(torch.bfloat16).contiguous()
+        ref_n = ref_n.to(torch.bfloat16).contiguous()
+        s, idx = correlation_argmax(lr_n, ref_n)
+        s_p, idx_p = correlation_argmax_plain(lr_n, ref_n)
+        torch.cuda.synchronize()
+        err, tol, nd = _corr_rule(f"corr_rows {h}x{w}", s, idx, s_p, idx_p,
+                                  lambda bi, p, k: (lr_n[bi, :, p].float()
+                                                    * ref_n[bi, k].float()).sum(1))
+        ms = time_ms(lambda: correlation_argmax(lr_n, ref_n), iters=3, warmup=1)
+        plain_ms = time_ms(lambda: correlation_argmax_plain(lr_n, ref_n),
+                           iters=1, warmup=1)
+        b, d, l = lr_n.shape
+        flops = 2.0 * b * l * ref_n.shape[1] * d
+        bms, by = bound(flops, nbytes(lr_n, ref_n, s, idx))
+        rows.append(dict(shape=f"mixed B=2 D=1152 L=Lr={l} ({h}x{w}x128), "
+                               f"ref [B, Lr, D]",
+                         max_abs_err=err, tol=tol, idx_differs=nd, ms=ms,
+                         plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                         bound_by=by, flops=flops))
+    return rows
+
+
+def check_attn(rng_seed: int):
+    """K8 on one 720p lv3 stream pair [2, 180, 320, 256], shift 0 and 2, held
+    as K2 is with x = 0 (the output is all update, so its errors are
+    measured against the output's own scale). The check must reject the
+    same two planted faults as K2's."""
+    import torch
+    from speinet_tpu_torch.kernels import (block_errors, block_errors_pass,
+                                          window_cross_attention,
+                                          window_cross_attention_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(rng_seed)
+    c, hidden, heads, ws = 256, 512, 8, 5
+    b, h, w = 2, 180, 320
+    wts = swin_weights(g, c, hidden, heads)
+    no_bias = wts._replace(relbias=torch.zeros_like(wts.relbias))
+    rows = []
+    for shift in (0, 2):
+        x = torch.randn((b, h, w, c), generator=g, device="cuda").to(torch.bfloat16)
+        y = torch.randn((b, h, w, c), generator=g, device="cuda").to(torch.bfloat16)
+        out = window_cross_attention(x, y, wts, ws, shift, 0, 0, heads)
+        ref = window_cross_attention_plain(x, y, wts, ws, shift, 0, 0, heads)
+        zero = torch.zeros_like(ref)
+        e = block_errors(out, ref, zero)
+        if not block_errors_pass(e):
+            raise AssertionError(f"window_cross_attention shift {shift}: {e}")
+        faults = {"no_relbias": window_cross_attention(x, y, no_bias, ws, shift, 0,
+                                                       0, heads)}
+        if shift:     # the kernel takes its mask from `shift` alone
+            faults["no_shift_mask"] = window_cross_attention(x, y, wts, ws, 0, 0, 0,
+                                                             heads)
+        planted = {k: block_errors(v, ref, zero) for k, v in faults.items()}
+        for k, fe in planted.items():
+            if block_errors_pass(fe):
+                raise AssertionError(f"window_cross_attention check accepts "
+                                     f"planted fault {k}: {fe}")
+        ms = time_ms(lambda: window_cross_attention(x, y, wts, ws, shift, 0, 0, heads),
+                     iters=5)
+        plain_ms = time_ms(lambda: window_cross_attention_plain(
+            x, y, wts, ws, shift, 0, 0, heads), iters=2, warmup=1)
+        tokens = b * h * w
+        flops = 2.0 * tokens * 4 * c * c + 4.0 * tokens * ws * ws * c
+        attn_w = [wts.ln1_w, wts.ln1_b, wts.wkv, wts.bkv, wts.wq, wts.bq, wts.wp,
+                  wts.bp, wts.relbias]
+        bms, by = bound(flops, nbytes(x, y, out, *attn_w))
+        rows.append(dict(shape=f"[2,180,320,256] shift {shift}", **e,
+                         planted_faults_rejected=planted, ms=ms,
+                         plain_ms=plain_ms, library_ms=None, bound_ms=bms,
+                         bound_by=by, flops=flops))
+    return rows
+
+
+def check_mlp(rng_seed: int):
+    """K9 on the 720p lv3 token rows [2, 57600, 256], hidden 512, held to
+    the update (out - x) as K2 is."""
+    import torch
+    from speinet_tpu_torch.kernels import (block_errors, block_errors_pass, ln_mlp,
+                                          ln_mlp_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(rng_seed)
+    c, hidden, heads = 256, 512, 8
+    wts = swin_weights(g, c, hidden, heads)
+    x = torch.randn((2, 57600, c), generator=g, device="cuda").to(torch.bfloat16)
+    out = ln_mlp(x, wts)
+    ref = ln_mlp_plain(x, wts)
+    e = block_errors(out, ref, x)
+    if not block_errors_pass(e):
+        raise AssertionError(f"ln_mlp: {e}")
+    ms = time_ms(lambda: ln_mlp(x, wts), iters=5)
+    plain_ms = time_ms(lambda: ln_mlp_plain(x, wts), iters=2, warmup=1)
+    flops = 4.0 * x.shape[0] * x.shape[1] * c * hidden
+    mlp_w = [wts.ln2_w, wts.ln2_b, wts.w1, wts.b1, wts.w2, wts.b2]
+    bms, by = bound(flops, nbytes(x, out, *mlp_w))
+    return [dict(shape="[2,57600,256] hidden 512", **e, ms=ms, plain_ms=plain_ms,
+                 library_ms=None, bound_ms=bms, bound_by=by, flops=flops)]
+
+
+def check_gather(rng_seed: int):
+    """K10 at the gather-fold's shapes: the one-tile-padded tile rows of the
+    three sharp levels side by side ([B, (H+2)(W+2), 896] bf16) and the nine
+    shifted tile indices of every lv3 position, at B = 2 720p and at a chop
+    tile's lv3; bit-exact against its plain version. The library call is
+    the advanced indexing the port used before K10 (it is the plain version
+    too)."""
+    import torch
+    from speinet_tpu_torch.kernels import row_gather, row_gather_plain
+    from speinet_tpu_torch.ops.patch_ops import _shift9_flat
+
+    g = torch.Generator(device="cuda").manual_seed(rng_seed)
+    r = 128 + 4 * 64 + 16 * 32
+    rows_out = []
+    for h, w in ((180, 320), (95, 165)):
+        rows = torch.randn((2, (h + 2) * (w + 2), r), generator=g,
+                           device="cuda").to(torch.bfloat16)
+        index = torch.randint(0, h * w, (2, h * w), generator=g, device="cuda")
+        flat = _shift9_flat(index, h, w).contiguous()
+        out = row_gather(rows, flat)
+        ref = row_gather_plain(rows, flat)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"row_gather {h}x{w}: not an exact copy")
+        ms = time_ms(lambda: row_gather(rows, flat), iters=10)
+        plain_ms = time_ms(lambda: row_gather_plain(rows, flat), iters=10)
+        bidx = torch.arange(2, device="cuda")[:, None]
+        lib_ms = time_ms(lambda: rows[bidx, flat], iters=10)
+        bms, by = bound(0.0, nbytes(rows, flat, out))
+        rows_out.append(dict(shape=f"rows [2,{rows.shape[1]},{r}] idx [2,{flat.shape[1]}]"
+                                   f" ({h}x{w} lv3)",
+                             max_abs_err=0.0, tol=0.0, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=bms, bound_by=by))
+    return rows_out
+
+
 def synthetic_video(n: int, h: int, w: int, seed: int):
     """n uint8 HxWx3 frames: smooth moving patterns plus noise."""
     import numpy as np
@@ -330,11 +557,12 @@ def synthetic_video(n: int, h: int, w: int, seed: int):
     return frames
 
 
-def run_main_path(cfg, frames, cache_pyramids: bool):
-    """One engine on a synthetic video with sharp labels at its first and
-    last frame (12 frames, 2 per chunk: sharp x3, mixed, self x2). Returns
-    (inference, launch counts of the run, wall s, psnr, ssim, outputs),
-    outputs the restored frames [3, H, W] f32 on the CPU by name."""
+def run_main_path(cfg, frames, cache_pyramids: bool, **paths):
+    """One engine (with the kernel-path switches `paths`) on a synthetic
+    video with sharp labels at its first and last frame (12 frames, 2 per
+    chunk: sharp x3, mixed, self x2). Returns (inference, launch counts of
+    the run, wall s, psnr, ssim, outputs), outputs the restored frames
+    [3, H, W] f32 on the CPU by name."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
@@ -351,7 +579,8 @@ def run_main_path(cfg, frames, cache_pyramids: bool):
     with tempfile.TemporaryDirectory() as res:
         inf = Inference(cfg, data_path=res, model_path="", result_path=res,
                         save_image=False, batch_windows=2,
-                        cache_pyramids=cache_pyramids, device="cuda", seed=0)
+                        cache_pyramids=cache_pyramids, device="cuda", seed=0,
+                        **paths)
         score = inf._score_chunk
 
         def keep(v, names, out, *args):
@@ -389,18 +618,19 @@ def psnr_db(a, b, peak: float = 1.0) -> float:
     return 10 * math.log10(peak * peak / max(mse, 1e-20))
 
 
-def check_against_cpu(cfg, inf):
+def check_against_cpu(cfg, inf, full: bool = True, **paths):
     """The card (kernels, bf16) against the CPU plain path (f32), same
-    weights, at 80x80: the cached restore of one window in both host
-    routings, and on a mixed batch (sample 1 has frame 3 zeroed) the direct
-    forward, the 8-way self-ensemble and the chopped forward."""
+    weights and kernel-path switches `paths`, at 80x80: the cached restore
+    of one window in both host routings, and on a mixed batch (sample 1 has
+    frame 3 zeroed) the direct forward and, if `full`, the 8-way
+    self-ensemble and the chopped forward."""
     import numpy as np
     import torch
     from speinet_tpu_torch.infer import forward_x8
     from speinet_tpu_torch.models.speinet import SPEINet
     from speinet_tpu_torch.parallel.chop import chop_forward
 
-    cpu = SPEINet.from_config(cfg.replace(compute_dtype="float32"))
+    cpu = SPEINet.from_config(cfg.replace(compute_dtype="float32"), **paths)
     cpu.load_state_dict({k: v.cpu() for k, v in inf.model.state_dict().items()})
     cpu.eval()
     frames = torch.from_numpy(np.stack(
@@ -432,9 +662,11 @@ def check_against_cpu(cfg, inf):
     blind = frames.clone()
     blind[3] = 0.0
     x = torch.stack([frames, blind])
-    for name, fn in (("forward_mixed", lambda m, t: m(t)),
-                     ("forward_x8", lambda m, t: forward_x8(t, m)),
-                     ("chop", lambda m, t: chop_forward(m, t, shave=cfg.chop_shave))):
+    runs = [("forward_mixed", lambda m, t: m(t))]
+    if full:
+        runs += [("forward_x8", lambda m, t: forward_x8(t, m)),
+                 ("chop", lambda m, t: chop_forward(m, t, shave=cfg.chop_shave))]
+    for name, fn in runs:
         compare(name, fn(inf.model, x.cuda()).float().cpu(), fn(cpu, x))
     return results
 
@@ -497,7 +729,11 @@ def main() -> int:
     for name, fn in (("roll2d", check_roll), ("conv2d", check_conv),
                      ("banded_corr_argmax", check_corr),
                      ("correlation_argmax_lds", check_corr_unfold),
-                     ("swin_block", check_swin)):
+                     ("correlation_argmax_ld", check_corr_ld),
+                     ("correlation_argmax", check_corr_rows),
+                     ("swin_block", check_swin),
+                     ("window_cross_attention", check_attn),
+                     ("ln_mlp", check_mlp), ("row_gather", check_gather)):
         t1 = time.time()
         checks[name] = fn(0)
         for row in checks[name]:
@@ -508,36 +744,60 @@ def main() -> int:
         compute_dtype="bfloat16", n_threads=4)
     frames = synthetic_video(12, 720, 1280, seed=1)
     n_frames = len(frames)
-    # each path with its launch counts reset just before it: the kernels
-    # each one must launch
-    paths = {"cached": ["conv2d", "swin_block", "roll2d", "banded_corr_argmax",
-                        "correlation_argmax_lds"],
-             "direct": ["conv2d", "swin_block", "roll2d", "correlation_argmax_lds"]}
+    # each path: (engine, kernel-path switches, kernels it must launch,
+    # kernels it must not), with its launch counts reset just before it
+    split = dict(swin_fuse_block=False, corr_raw=False)
+    prescaled = dict(corr_banded=False, corr_scaled=False)
+    paths = {
+        "cached": (True, {}, ["conv2d", "swin_block", "roll2d", "banded_corr_argmax",
+                              "correlation_argmax_lds", "row_gather"], []),
+        "direct": (False, {}, ["conv2d", "swin_block", "roll2d",
+                               "correlation_argmax_lds", "row_gather"], []),
+        "split": (True, split, ["conv2d", "roll2d", "window_cross_attention",
+                                "ln_mlp", "correlation_argmax", "row_gather"],
+                  ["swin_block", "banded_corr_argmax", "correlation_argmax_lds"]),
+        "prescaled": (True, prescaled, ["conv2d", "swin_block", "roll2d",
+                                        "correlation_argmax_ld", "row_gather"],
+                      ["banded_corr_argmax", "correlation_argmax_lds"]),
+    }
     launches = {k: 0 for k in checks}
-    outputs = {}
-    for path, needs in paths.items():
+    outputs, vs_cached, engines = {}, {}, {}
+    for path, (cached, switches, needs, shuns) in paths.items():
+        t1 = time.time()
         inf, counts, wall, psnr, ssim, outputs[path] = run_main_path(
-            cfg, frames, cache_pyramids=path == "cached")
+            cfg, frames, cache_pyramids=cached, **switches)
+        engines[path] = inf
         per_frame = {k: v / n_frames * 1e3 for k, v in inf.stage_seconds.items() if v}
-        line = dict(engine=path, frames=n_frames, size="1280x720", batch_windows=2,
-                    wall_s=wall, ms_per_frame=per_frame, launches=counts,
-                    mean_psnr_vs_gt=float(sum(psnr) / len(psnr)))
-        if path == "direct":
-            vs = [psnr_db(outputs["direct"][k], outputs["cached"][k])
-                  for k in sorted(outputs["cached"])]
-            line["psnr_vs_cached_db"] = vs
+        line = dict(engine=path, switches=switches, frames=n_frames, size="1280x720",
+                    batch_windows=2, wall_s=wall, ms_per_frame=per_frame,
+                    launches=counts, mean_psnr_vs_gt=float(sum(psnr) / len(psnr)))
+        if path != "cached":
+            vs_cached[path] = [psnr_db(outputs[path][k], outputs["cached"][k])
+                               for k in sorted(outputs["cached"])]
+            line["psnr_vs_cached_db"] = vs_cached[path]
         print(f"main path ({path}): " + json.dumps(line), flush=True)
+        print(f"main path ({path}): run in {time.time() - t1:.1f} s", flush=True)
         missing = [k for k in needs if counts[k] <= 0]
         if missing:
             raise AssertionError(f"kernels not launched on the {path} path: {missing}")
+        stray = [k for k in shuns if counts[k] > 0]
+        if stray:
+            raise AssertionError(f"kernels of another path launched on the {path} "
+                                 f"path: {stray}")
         for k in launches:
             launches[k] += counts[k]
-    # the engines differ only in bf16 rounding places (the direct forward
-    # rounds the centre frame to bf16 before its RL branch, the cached legs
-    # run RL on the f32 frame) and in K4 vs K5 summation order
-    if not min(vs) >= 40.0:
-        raise AssertionError(f"direct vs cached engine: {min(vs):.2f} dB < 40")
-    print("card vs cpu: " + json.dumps(check_against_cpu(cfg, inf)), flush=True)
+    # the paths differ from the cached engine only in where bf16 rounds
+    # (the direct forward rounds the centre frame to bf16 before its RL
+    # branch; the split block rounds the residual stream to bf16 between K8
+    # and K9, where K2 keeps it in f32; normalized operands round otherwise
+    # than raw ones) and in summation order
+    for path, vs in vs_cached.items():
+        if not min(vs) >= 40.0:
+            raise AssertionError(f"{path} vs cached engine: {min(vs):.2f} dB < 40")
+    print("card vs cpu: " + json.dumps(check_against_cpu(cfg, engines["direct"])),
+          flush=True)
+    print("card vs cpu (split): " + json.dumps(
+        check_against_cpu(cfg, engines["split"], full=False, **split)), flush=True)
     print("detector: " + json.dumps(check_detector(frames)), flush=True)
 
     meta = {
@@ -551,6 +811,16 @@ def main() -> int:
                                "speinet_tpu/ops/pallas_corr.py:526"),
         "correlation_argmax_lds": ("speinet_tpu_torch/csrc/corr_unfold.cu",
                                    "speinet_tpu/ops/pallas_corr.py:260"),
+        "correlation_argmax_ld": ("speinet_tpu_torch/csrc/corr_unfold.cu",
+                                  "speinet_tpu/ops/pallas_corr.py:204"),
+        "correlation_argmax": ("speinet_tpu_torch/csrc/corr_unfold.cu",
+                               "speinet_tpu/ops/pallas_corr.py:83"),
+        "window_cross_attention": ("speinet_tpu_torch/csrc/swin_attn.cu",
+                                   "speinet_tpu/ops/pallas_swin.py:629"),
+        "ln_mlp": ("speinet_tpu_torch/csrc/swin_mlp.cu",
+                   "speinet_tpu/ops/pallas_swin.py:131"),
+        "row_gather": ("speinet_tpu_torch/csrc/row_gather.cu",
+                       "speinet_tpu/ops/pallas_gather.py:64"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():

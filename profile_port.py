@@ -9,10 +9,13 @@ profiles three calls of each stage with torch.profiler: the cached engine's
 legs (one frame's encoder legs), anchor (one anchor pyramid) and restore
 (two windows, as the engine's chunks of chip_smoke.py hold, in 'sharp',
 'self' and 'mixed' routing), and the direct engine's forward of two
-windows (one with its pre-sharp frame zeroed, so routed per sample).
-Prints, per stage, the wall ms per call (host clock around work ending in
-a device sync), the device-busy share (summed kernel time over wall time)
-and the kernels that take most of the device time. Imports nothing of JAX.
+windows (one with its pre-sharp frame zeroed, so routed per sample). The
+restores are profiled again for the `split` (swin_fuse_block=False,
+corr_raw=False) and `prescaled` (corr_banded=False, corr_scaled=False)
+kernel paths of chip_smoke.py, same weights. Prints, per stage, the wall
+ms per call (host clock around work ending in a device sync), the
+device-busy share (summed kernel time over wall time) and the kernels that
+take most of the device time. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -24,6 +27,9 @@ import time
 
 WINDOWS = 2   # windows per restore call
 STEPS = 3     # profiled calls per stage
+# kernel-path switches of the models whose restores are profiled
+PATHS = {"default": {}, "split": dict(swin_fuse_block=False, corr_raw=False),
+         "prescaled": dict(corr_banded=False, corr_scaled=False)}
 
 
 def main() -> int:
@@ -38,7 +44,9 @@ def main() -> int:
     from speinet_tpu_torch.models.speinet import SPEINet, init_weights
 
     cfg = set_template(Config(template="SPEINet")).replace(compute_dtype="bfloat16")
-    model = init_weights(SPEINet.from_config(cfg), seed=0).cuda().eval()
+    models = {k: init_weights(SPEINet.from_config(cfg, **v), seed=0).cuda().eval()
+              for k, v in PATHS.items()}
+    model = models["default"]
     g = torch.Generator(device="cuda").manual_seed(0)
     frames = torch.rand((4, 3, 720, 1280), generator=g, device="cuda")
     m, n = model.encode_window_legs(frames[:3])
@@ -51,14 +59,14 @@ def main() -> int:
     stages = {
         "legs (1 frame)": lambda: model.encode_window_legs(frames[:1]),
         "anchor (1 frame)": lambda: model.anchor_pyramid(frames[3:4]),
-        f"restore sharp ({b} windows)": lambda: model.restore_from_features(
-            rep(m[1:2]), (rep(n[0:1]), rep(n[2:3])), *map(rep, lv), "sharp"),
-        f"restore self ({b} windows)": lambda: model.restore_from_features(
-            rep(m[1:2]), (rep(n[0:1]), rep(n[2:3])), *map(rep, lv), "self"),
-        f"restore mixed ({b} windows)": lambda: model.restore_from_features(
-            rep(m[1:2]), (rep(n[0:1]), rep(n[2:3])), *map(rep, lv), "mixed", mixed),
-        f"direct forward ({b} windows)": lambda: model(x),
     }
+    for path, mdl in models.items():
+        for routing in ("sharp", "self", "mixed"):
+            stages[f"restore {routing} ({b} windows, {path})"] = (
+                lambda mdl=mdl, r=routing: mdl.restore_from_features(
+                    rep(m[1:2]), (rep(n[0:1]), rep(n[2:3])), *map(rep, lv), r,
+                    mixed if r == "mixed" else None))
+    stages[f"direct forward ({b} windows)"] = lambda: model(x)
     print(f"device: {torch.cuda.get_device_name(0)}")
     for name, fn in stages.items():
         fn()

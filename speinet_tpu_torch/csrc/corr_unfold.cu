@@ -1,8 +1,9 @@
-// K5: patch correlation max / argmax on explicit 3x3 unfolds, with the
-// reference-side row scale applied to the operand inside the kernel.
+// K5, K6 and K7: patch correlation max / argmax on explicit 3x3 unfolds,
+// one kernel in three modes.
 //
-// Replaces speinet_tpu/ops/pallas_corr.py::correlation_argmax_pallas_lds
-// (pallas_call at :260 in _corr_impl_lds :236, body _corr_kernel_lds :147):
+// K5 (SCALED) replaces speinet_tpu/ops/pallas_corr.py::
+// correlation_argmax_pallas_lds (pallas_call at :260 in _corr_impl_lds :236,
+// body _corr_kernel_lds :147):
 //     R[k, i] = < bf16(ref[:, k] * bf16(inv[k])), lr[:, i] >   (f32 sums)
 //     S[i]    = max_k R[k, i],   idx[i] = first k attaining it
 // lr [B, D, L] and ref [B, D, Lr] are raw bf16 unfolds (D = 9C, D-major:
@@ -10,13 +11,26 @@
 // of ref past Lr are masked out. The caller scales S by the query-side
 // inverse norms afterwards; the argmax does not depend on them.
 //
+// K6 (PLAIN) replaces correlation_argmax_pallas_ld (pallas_call at :204,
+// body _corr_kernel_ld :117): the same with the reference already scaled on
+// the host (kernels/corr.py::scaled_reference), so no scale in the kernel.
+// The operands it multiplies are then the very bf16 values K5 forms in its
+// fragments, and the loop is the same, so K6 on the host-scaled reference
+// returns K5's S and idx bit for bit.
+// K7 (ROWS) replaces correlation_argmax_pallas (pallas_call at :83, body
+// _corr_kernel :32): no scale, operands already L2-normalized, and the
+// reference in [B, Lr, D] layout (each position's D values contiguous). Its
+// B fragments come from ldmatrix without .trans on a staged [TK][DK] chunk
+// whose rows are DK + 8 = 72 bf16 (144 bytes, an odd multiple of 16) apart;
+// the D-major modes stage [DK][TL] chunks with rows 136 bf16 apart.
+//
 // Rounding: the TPU kernel multiplies the bf16 operand by inv cast to bf16
 // and rounds the product to bf16 before the dot (pallas_corr.py:163). The
 // product of two bf16 values is exact in f32, so rounding it once to
 // nearest-even bf16, as this kernel's bf16x2 multiply does, gives the
 // TPU's operand bit for bit.
 //
-// Bound on the H100: operations. At 720p lv3 (L = Lr = 57,600, D = 1152)
+// Bound on the H100, in every mode: operations. At 720p lv3 (L = Lr = 57,600, D = 1152)
 // the product is 2*L*Lr*D = 7.64 TFLOP per sample against 265 MB of input.
 // Design: a CTA owns 128 query positions and walks every 128-wide reference
 // tile in ascending order. D is too deep to stage whole (a 128-position
@@ -24,12 +38,12 @@
 // both raw 64 x 128 chunks go by cp.async into a 3-stage ring in shared
 // memory (one barrier per chunk, two chunks in flight), and are multiplied
 // on tensor cores (mma.sync m16n8k16 bf16, f32 accumulators held across
-// the whole depth). Both operands are [D, positions] row-major, so both
-// fragments come from ldmatrix.trans; rows are 136 bf16 (272 bytes, an odd
-// multiple of 16) apart, so the eight rows of every 8 x 8 matrix fall on
-// eight bank groups. Each register of a B fragment holds two depth rows of
-// one reference position, so the scale is applied there, after ldmatrix:
-// one bf16x2 multiply rounded to nearest even, the correctly rounded
+// the whole depth). In the D-major modes both operands are [D, positions]
+// row-major, so both fragments come from ldmatrix.trans; rows are 136 bf16
+// (272 bytes, an odd multiple of 16) apart, so the eight rows of every
+// 8 x 8 matrix fall on eight bank groups. Each register of a B fragment
+// holds two depth rows of one reference position, so K5's scale is applied
+// there, after ldmatrix: one bf16x2 multiply rounded to nearest even, the correctly rounded
 // product, which is what rounding the exact f32 product gives. After a
 // tile's last chunk each warp folds its 32 x 64 scores into a per-query
 // running (max, index), ties to the smaller index; the quads and the two
@@ -63,8 +77,17 @@ constexpr int THREADS = 256;
 constexpr int VECS = TL / 8;               // 16-byte vectors per staged row
 constexpr int ROWS_PER_PASS = THREADS / VECS;
 constexpr int PASSES = DK / ROWS_PER_PASS;
-constexpr int STAGE_ELEMS = 2 * DK * LDS;  // query chunk, then reference chunk
-static_assert(TL == TK, "one staging map serves both operands");
+constexpr int LDK = DK + 8;                // staged row pitch of a [TK][DK] chunk
+constexpr int LR_ELEMS = DK * LDS;         // one staged query chunk
+static_assert(TL == TK, "one staging map serves both D-major operands");
+
+enum Mode { SCALED, PLAIN, ROWS };
+
+// bf16 elements of one ring stage: the query chunk, then the reference chunk
+template <Mode MODE>
+__host__ __device__ constexpr int stage_elems() {
+  return LR_ELEMS + (MODE == ROWS ? TK * LDK : DK * LDS);
+}
 
 __device__ __forceinline__ bool better(float v, int q, float bv, int bq) {
   return v > bv || (v == bv && q < bq);
@@ -80,12 +103,16 @@ __device__ __forceinline__ uint32_t scale2(uint32_t v, __nv_bfloat162 s) {
   return out;
 }
 
+// REF is [B, D, ldr] (SCALED, PLAIN) or [B, Lr, D] (ROWS); INV is read in
+// SCALED mode only
+template <Mode MODE>
 __global__ void __launch_bounds__(THREADS, 2) corr_unfold_kernel(
     const bf16* __restrict__ LR, const bf16* __restrict__ REF,
     const float* __restrict__ INV, float* __restrict__ S,
     int* __restrict__ IDX, int D, int L, int ldl, int Lr, int ldr) {
+  constexpr int STAGE_ELEMS = stage_elems<MODE>();
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);                 // [STAGES][2][DK][LDS]
+  bf16* ring = reinterpret_cast<bf16*>(smem);                 // [STAGES][STAGE_ELEMS]
   float* comb_v = reinterpret_cast<float*>(ring + STAGES * STAGE_ELEMS);  // [TL]
   int* comb_q = reinterpret_cast<int*>(comb_v + TL);                      // [TL]
 
@@ -97,8 +124,8 @@ __global__ void __launch_bounds__(THREADS, 2) corr_unfold_kernel(
   const int wi = warp >> 1;   // query positions 32wi .. 32wi+31 of the tile
   const int wk = warp & 1;    // reference positions 64wk .. 64wk+63
   const bf16* lrb = LR + (size_t)b * D * ldl;
-  const bf16* rfb = REF + (size_t)b * D * ldr;
-  const float* invb = INV + (size_t)b * Lr;
+  const bf16* rfb = REF + (size_t)b * D * (MODE == ROWS ? Lr : ldr);
+  const float* invb = MODE == SCALED ? INV + (size_t)b * Lr : nullptr;
 
   const int n_dc = (D + DK - 1) / DK;
   const int n_kt = (Lr + TK - 1) / TK;
@@ -109,6 +136,9 @@ __global__ void __launch_bounds__(THREADS, 2) corr_unfold_kernel(
   // wholly inside or wholly outside the padded row)
   const int col8 = tid % VECS;
   const int srow = tid / VECS;
+  // ROWS mode's reference map: depth vector dvec of positions kpos + 32 p
+  const int dvec = tid % (DK / 8);
+  const int kpos = tid / (DK / 8);
 
   // issue the copies of chunk `step` (if any) into its ring stage; one
   // commit group per call, empty past the end, so group counts stay fixed
@@ -117,7 +147,7 @@ __global__ void __launch_bounds__(THREADS, 2) corr_unfold_kernel(
       const int kt = step / n_dc;
       const int d0 = (step - kt * n_dc) * DK;
       bf16* lr_dst = ring + (step % STAGES) * STAGE_ELEMS;
-      bf16* rf_dst = lr_dst + DK * LDS;
+      bf16* rf_dst = lr_dst + LR_ELEMS;
       const int i = i0 + col8 * 8;
       const int k = kt * TK + col8 * 8;
 #pragma unroll
@@ -125,15 +155,32 @@ __global__ void __launch_bounds__(THREADS, 2) corr_unfold_kernel(
         const int r = srow + ROWS_PER_PASS * p;
         const bool d_ok = d0 + r < D;
         bf16* dl = lr_dst + r * LDS + col8 * 8;
-        bf16* dr = rf_dst + r * LDS + col8 * 8;
         if (d_ok && i < ldl)
           __pipeline_memcpy_async(dl, lrb + (size_t)(d0 + r) * ldl + i, 16);
         else
           *reinterpret_cast<uint4*>(dl) = make_uint4(0, 0, 0, 0);
-        if (d_ok && k < ldr)
-          __pipeline_memcpy_async(dr, rfb + (size_t)(d0 + r) * ldr + k, 16);
-        else
-          *reinterpret_cast<uint4*>(dr) = make_uint4(0, 0, 0, 0);
+        if constexpr (MODE != ROWS) {
+          bf16* dr = rf_dst + r * LDS + col8 * 8;
+          if (d_ok && k < ldr)
+            __pipeline_memcpy_async(dr, rfb + (size_t)(d0 + r) * ldr + k, 16);
+          else
+            *reinterpret_cast<uint4*>(dr) = make_uint4(0, 0, 0, 0);
+        }
+      }
+      if constexpr (MODE == ROWS) {
+        // [TK positions][DK depth]: 8 vectors per position row (D % 8 == 0,
+        // so a vector is wholly inside or wholly outside the row)
+        const int d = d0 + dvec * 8;
+#pragma unroll
+        for (int p = 0; p < TK * DK / 8 / THREADS; ++p) {
+          const int pos = kpos + (THREADS / (DK / 8)) * p;
+          const int kk = kt * TK + pos;
+          bf16* dr = rf_dst + pos * LDK + dvec * 8;
+          if (kk < Lr && d < D)
+            __pipeline_memcpy_async(dr, rfb + (size_t)kk * D + d, 16);
+          else
+            *reinterpret_cast<uint4*>(dr) = make_uint4(0, 0, 0, 0);
+        }
       }
     }
     __pipeline_commit();
@@ -144,6 +191,11 @@ __global__ void __launch_bounds__(THREADS, 2) corr_unfold_kernel(
   const int a_icol = ((lane >> 3) & 1) * 8;
   const int b_drow = (lane & 7) + ((lane >> 3) & 1) * 8;
   const int b_kcol = (lane >> 4) * 8;
+  // this lane's ldmatrix row (a reference position) and depth offset in
+  // ROWS mode: matrices (positions 0-7, depth 0-7), (0-7, 8-15), (8-15,
+  // 0-7), (8-15, 8-15) are the same four B registers .trans gives above
+  const int b_krow = (lane & 7) + ((lane >> 4) & 1) * 8;
+  const int b_dcol = ((lane >> 3) & 1) * 8;
   const uint32_t ring_sa = static_cast<uint32_t>(__cvta_generic_to_shared(ring));
 
   float acc[2][8][4];
@@ -170,7 +222,7 @@ __global__ void __launch_bounds__(THREADS, 2) corr_unfold_kernel(
 
     const int kt = s / n_dc;
     const int dc = s - kt * n_dc;
-    if (dc == 0) {
+    if (MODE == SCALED && dc == 0) {
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
         const int q = kt * TK + wk * 64 + 8 * n + (lane >> 2);
@@ -178,7 +230,7 @@ __global__ void __launch_bounds__(THREADS, 2) corr_unfold_kernel(
       }
     }
     const uint32_t la = ring_sa + (uint32_t)((s % STAGES) * STAGE_ELEMS * 2);
-    const uint32_t ra = la + (uint32_t)(DK * LDS * 2);
+    const uint32_t ra = la + (uint32_t)(LR_ELEMS * 2);
 #pragma unroll
     for (int kk = 0; kk < DK; kk += 16) {
       uint32_t a[2][4];
@@ -191,12 +243,19 @@ __global__ void __launch_bounds__(THREADS, 2) corr_unfold_kernel(
         // depth rows kk..kk+15 of reference positions 16j .. 16j+15 of
         // this warp's 64: n8 blocks 2j (bm[0], bm[1]) and 2j+1 (bm[2], bm[3])
         uint32_t bm[4];
-        ldmatrix_x4_trans(bm, ra + (uint32_t)(((kk + b_drow) * LDS + wk * 64
-                                               + j * 16 + b_kcol) * 2));
-        bm[0] = scale2(bm[0], sc[2 * j]);
-        bm[1] = scale2(bm[1], sc[2 * j]);
-        bm[2] = scale2(bm[2], sc[2 * j + 1]);
-        bm[3] = scale2(bm[3], sc[2 * j + 1]);
+        if constexpr (MODE == ROWS) {
+          ldmatrix_x4(bm, ra + (uint32_t)(((wk * 64 + j * 16 + b_krow) * LDK
+                                           + kk + b_dcol) * 2));
+        } else {
+          ldmatrix_x4_trans(bm, ra + (uint32_t)(((kk + b_drow) * LDS + wk * 64
+                                                 + j * 16 + b_kcol) * 2));
+        }
+        if constexpr (MODE == SCALED) {
+          bm[0] = scale2(bm[0], sc[2 * j]);
+          bm[1] = scale2(bm[1], sc[2 * j]);
+          bm[2] = scale2(bm[2], sc[2 * j + 1]);
+          bm[3] = scale2(bm[3], sc[2 * j + 1]);
+        }
 #pragma unroll
         for (int m = 0; m < 2; ++m) {
           mma_bf16(acc[m][2 * j], a[m], bm[0], bm[1]);
@@ -285,11 +344,30 @@ __global__ void __launch_bounds__(THREADS, 2) corr_unfold_kernel(
   }
 }
 
+template <Mode MODE>
+cudaError_t launch(const void* LR, const void* REF, const void* INV, void* S,
+                   void* IDX, int B, int D, int L, int ldl, int Lr, int ldr,
+                   cudaStream_t stream) {
+  const size_t smem = (size_t)STAGES * stage_elems<MODE>() * sizeof(bf16)
+                      + TL * (sizeof(float) + sizeof(int));
+  cudaError_t e = cudaFuncSetAttribute(
+      corr_unfold_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((L + TL - 1) / TL, B);
+  corr_unfold_kernel<MODE><<<grid, THREADS, smem, stream>>>(
+      static_cast<const bf16*>(LR), static_cast<const bf16*>(REF),
+      static_cast<const float*>(INV), static_cast<float*>(S),
+      static_cast<int*>(IDX), D, L, ldl, Lr, ldr);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// LR [B, D, ldl] bf16 (positions >= L are padding), REF [B, D, ldr] bf16
-// (positions >= Lr are padding, masked), INV [B, Lr] f32 -> S [B, L] f32,
-// IDX [B, L] int32. ldl and ldr must be multiples of 8 (16-byte rows).
+// K5 / K6. LR [B, D, ldl] bf16 (positions >= L are padding), REF [B, D, ldr]
+// bf16 (positions >= Lr are padding, masked), INV [B, Lr] f32 or null (no
+// scale: K6) -> S [B, L] f32, IDX [B, L] int32. ldl and ldr must be
+// multiples of 8 (16-byte rows).
 extern "C" int speinet_corr_unfold(const void* LR, const void* REF,
                                    const void* INV, void* S, void* IDX, int B,
                                    int D, int L, int ldl, int Lr, int ldr,
@@ -297,15 +375,20 @@ extern "C" int speinet_corr_unfold(const void* LR, const void* REF,
   if (B < 1 || B > 65535 || D < 1 || L < 1 || Lr < 1 || ldl < L || ldr < Lr
       || ldl % 8 != 0 || ldr % 8 != 0)
     return cudaErrorInvalidValue;
-  const size_t smem = (size_t)STAGES * STAGE_ELEMS * sizeof(bf16)
-                      + TL * (sizeof(float) + sizeof(int));
-  cudaError_t e = cudaFuncSetAttribute(
-      corr_unfold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((L + TL - 1) / TL, B);
-  corr_unfold_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(LR), static_cast<const bf16*>(REF),
-      static_cast<const float*>(INV), static_cast<float*>(S),
-      static_cast<int*>(IDX), D, L, ldl, Lr, ldr);
-  return cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (INV == nullptr)
+    return launch<PLAIN>(LR, REF, INV, S, IDX, B, D, L, ldl, Lr, ldr, s);
+  return launch<SCALED>(LR, REF, INV, S, IDX, B, D, L, ldl, Lr, ldr, s);
+}
+
+// K7. LR [B, D, ldl] bf16 as above, REF [B, Lr, D] bf16 (position-major)
+// -> S [B, L] f32, IDX [B, L] int32. ldl and D must be multiples of 8.
+extern "C" int speinet_corr_rows(const void* LR, const void* REF, void* S,
+                                 void* IDX, int B, int D, int L, int ldl,
+                                 int Lr, void* stream) {
+  if (B < 1 || B > 65535 || D < 8 || D % 8 != 0 || L < 1 || Lr < 1 || ldl < L
+      || ldl % 8 != 0)
+    return cudaErrorInvalidValue;
+  return launch<ROWS>(LR, REF, nullptr, S, IDX, B, D, L, ldl, Lr, 0,
+                      static_cast<cudaStream_t>(stream));
 }

@@ -25,6 +25,10 @@ work as well as the PNG tree of the CLI.
 
 On the card the CLI computes in bfloat16 unless --compute_dtype says
 otherwise; with --device cpu it keeps the config's float32.
+`--swin_fuse_block`, `--corr_raw`, `--corr_banded` and `--corr_scaled` (0 or
+1, default 1) choose among the kernel paths as the JAX package's
+SPEINET_SWIN_FUSEBLOCK, SPEINET_CORR_RAW, SPEINET_CORR_BANDED and
+SPEINET_CORR_SCALED do (`models/speinet.py`).
 """
 
 from __future__ import annotations
@@ -122,7 +126,9 @@ class Inference:
                  result_path: str, save_image: bool = True, border: bool = True,
                  detector_pickle: str | None = None, self_ensemble: bool = False,
                  batch_windows: int = 1, cache_pyramids: bool = False,
-                 device="cuda", seed: int = 0):
+                 device="cuda", seed: int = 0, *, swin_fuse_block: bool = True,
+                 corr_raw: bool = True, corr_banded: bool = True,
+                 corr_scaled: bool = True):
         if cache_pyramids and (self_ensemble or cfg.chop):
             raise ValueError("--self_ensemble and --chop run on the direct "
                              "engine; drop --cache_pyramids")
@@ -157,7 +163,9 @@ class Inference:
                      ("device", f"{self.device} ({dev_name})")]:
             self.logger.write_log(f"{k}: {v}")
 
-        self.model = SPEINet.from_config(cfg)
+        self.model = SPEINet.from_config(
+            cfg, swin_fuse_block=swin_fuse_block, corr_raw=corr_raw,
+            corr_banded=corr_banded, corr_scaled=corr_scaled)
         if model_path:
             self.model.load_state_dict(
                 torch.load(model_path, map_location="cpu", weights_only=True),
@@ -456,6 +464,18 @@ def main(argv=None):
     p.add_argument("--cache_pyramids", action="store_true",
                    help="reuse per-frame encoder features across windows")
     p.add_argument("--device", type=str, default="cuda")
+    for flag, switch, what in (
+            ("swin_fuse_block", "SPEINET_SWIN_FUSEBLOCK",
+             "1: one kernel per Swin block (K2); 0: attention (K8) + MLP (K9)"),
+            ("corr_raw", "SPEINET_CORR_RAW",
+             "1: raw unfolds with the norms folded around the kernel; "
+             "0: L2-normalized unfolds through K7"),
+            ("corr_banded", "SPEINET_CORR_BANDED",
+             "1: 'sharp' / 'self' on the maps (K4); 0: on unfolds (K5 / K6)"),
+            ("corr_scaled", "SPEINET_CORR_SCALED",
+             "1: reference scaled in the kernel (K5); 0: on the host (K6)")):
+        p.add_argument(f"--{flag}", type=int, choices=(0, 1), default=1,
+                       help=f"{what} (mirrors the JAX package's {switch})")
     argv = list(sys.argv[1:] if argv is None else argv)
     args, config_argv = p.parse_known_args(argv)
     cfg = parse_config_args(config_argv).replace(chop=args.chop)
@@ -476,7 +496,10 @@ def main(argv=None):
                     detector_pickle=args.detector_pickle or None,
                     self_ensemble=args.self_ensemble,
                     batch_windows=args.batch_windows,
-                    cache_pyramids=args.cache_pyramids, device=args.device)
+                    cache_pyramids=args.cache_pyramids, device=args.device,
+                    swin_fuse_block=bool(args.swin_fuse_block),
+                    corr_raw=bool(args.corr_raw), corr_banded=bool(args.corr_banded),
+                    corr_scaled=bool(args.corr_scaled))
     try:
         inf.infer()
     finally:

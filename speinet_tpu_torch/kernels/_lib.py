@@ -29,18 +29,21 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 SOURCES = ("conv.cu", "swin_block.cu", "roll.cu", "corr_banded.cu",
-           "corr_unfold.cu")
-HEADERS = ("tensor_core.cuh",)
+           "corr_unfold.cu", "row_gather.cu", "swin_attn.cu", "swin_mlp.cu")
+HEADERS = ("tensor_core.cuh", "swin_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo")
 
 # launches per kernel wrapper since the last reset_launches()
 LAUNCHES = {"conv2d": 0, "swin_block": 0, "roll2d": 0, "banded_corr_argmax": 0,
-            "correlation_argmax_lds": 0}
+            "correlation_argmax_lds": 0, "correlation_argmax_ld": 0,
+            "correlation_argmax": 0, "window_cross_attention": 0, "ln_mlp": 0,
+            "row_gather": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # argument types of every exported function, by name
 SIGNATURES = {
     "speinet_conv2d": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -50,6 +53,11 @@ SIGNATURES = {
     "speinet_roll2d": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     "speinet_banded_corr": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "speinet_corr_unfold": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "speinet_corr_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "speinet_swin_attn": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                          _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "speinet_swin_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
+    "speinet_row_gather": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -1,11 +1,18 @@
-"""K4 and K5 wrappers: 3x3-patch correlation max / argmax.
+"""K4-K7 wrappers: 3x3-patch correlation max / argmax.
 
 K4 `banded_corr_argmax` (`csrc/corr_banded.cu`) replaces
 `speinet_tpu/ops/pallas_corr.py::banded_corr_argmax` and works on the
-feature maps; K5 `correlation_argmax_lds` (`csrc/corr_unfold.cu`) replaces
-`correlation_argmax_pallas_lds` and works on explicit [B, 9C, L] unfolds,
-so a batch may mix reference layouts sample by sample. A CPU tensor takes
-the plain version; a CUDA tensor launches the kernel or raises.
+feature maps. The other three work on explicit [B, 9C, L] unfolds, so a
+batch may mix reference layouts sample by sample, and are three modes of
+one kernel, `csrc/corr_unfold.cu`:
+    K5 correlation_argmax_lds  raw reference [B, D, Lr], scaled in the kernel
+                               (`correlation_argmax_pallas_lds`)
+    K6 correlation_argmax_ld   reference [B, D, Lr] scaled on the host
+                               (`correlation_argmax_pallas_ld`)
+    K7 correlation_argmax      L2-normalized operands, reference [B, Lr, D]
+                               (`correlation_argmax_pallas`)
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -87,19 +94,23 @@ def banded_corr_argmax(lr_map: torch.Tensor, ref_map: torch.Tensor,
     return s, idx
 
 
-def _check_lds_args(lr: torch.Tensor, ref: torch.Tensor,
-                    inv_ref: torch.Tensor) -> None:
+def _check_unfold_args(what: str, lr: torch.Tensor, ref: torch.Tensor,
+                       ref_rows: bool, inv_ref: torch.Tensor | None = None) -> None:
+    """lr [B, D, L] and a reference [B, D, Lr] (or [B, Lr, D] where
+    `ref_rows`) of the same batch and depth, all contiguous."""
     if lr.ndim != 3 or ref.ndim != 3:
-        raise ValueError("correlation_argmax_lds takes [B, D, L] unfolds")
+        raise ValueError(f"{what} takes 3-d unfolds, got {tuple(lr.shape)} and "
+                         f"{tuple(ref.shape)}")
     b, d, _ = lr.shape
-    if ref.shape[:2] != (b, d):
-        raise ValueError(f"reference {tuple(ref.shape)} does not match "
+    lr_len = ref.shape[1] if ref_rows else ref.shape[2]
+    if tuple(ref.shape) != ((b, lr_len, d) if ref_rows else (b, d, lr_len)):
+        raise ValueError(f"{what}: reference {tuple(ref.shape)} does not match "
                          f"query {tuple(lr.shape)}")
-    if inv_ref.shape != (b, ref.shape[2]):
+    if inv_ref is not None and inv_ref.shape != (b, lr_len):
         raise ValueError(f"inv_ref {tuple(inv_ref.shape)} should be [B, Lr]")
     for name, t in (("lr", lr), ("ref", ref), ("inv_ref", inv_ref)):
-        if not t.is_contiguous():
-            raise ValueError(f"correlation_argmax_lds: {name} must be contiguous")
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
 
 
 def scaled_reference(ref: torch.Tensor, inv_ref: torch.Tensor) -> torch.Tensor:
@@ -110,19 +121,16 @@ def scaled_reference(ref: torch.Tensor, inv_ref: torch.Tensor) -> torch.Tensor:
     return (ref.float() * inv).to(ref.dtype)
 
 
-def correlation_argmax_lds_plain(lr: torch.Tensor, ref: torch.Tensor,
-                                 inv_ref: torch.Tensor):
-    """S[i] = max_k <scaled ref[:, k], lr[:, i]> and its first argmax, with
-    the [Lr, L] product taken CHUNK reference positions at a time in f32."""
+def _first_max(lr: torch.Tensor, ref_rows: torch.Tensor):
+    """S[i] = max_k <ref_rows[:, k], lr[:, :, i]> and its first argmax, for
+    lr [B, D, L] and ref_rows [B, Lr, D] (any strides), with the [Lr, L]
+    product taken CHUNK reference positions at a time in f32."""
     b, _, l = lr.shape
-    lr_len = ref.shape[2]
-    scaled = scaled_reference(ref, inv_ref)
     lf = lr.float()
     best = torch.full((b, l), float("-inf"), device=lr.device)
     best_idx = torch.zeros((b, l), dtype=torch.int64, device=lr.device)
-    for q0 in range(0, lr_len, CHUNK):
-        q1 = min(q0 + CHUNK, lr_len)
-        r = torch.bmm(scaled[:, :, q0:q1].transpose(1, 2).float(), lf)  # [B, chunk, L]
+    for q0 in range(0, ref_rows.shape[1], CHUNK):
+        r = torch.bmm(ref_rows[:, q0:q0 + CHUNK].float(), lf)   # [B, chunk, L]
         cmax, carg = r.max(dim=1)
         upd = cmax > best
         best = torch.where(upd, cmax, best)
@@ -130,31 +138,92 @@ def correlation_argmax_lds_plain(lr: torch.Tensor, ref: torch.Tensor,
     return best, best_idx.to(torch.int32)
 
 
-def correlation_argmax_lds(lr: torch.Tensor, ref: torch.Tensor,
-                           inv_ref: torch.Tensor):
-    """lr [B, D, L], ref [B, D, Lr] raw unfolds, inv_ref [B, Lr] f32
-    -> (S [B, L] f32, idx [B, L] int32) of max_k <bf16(ref_k * inv_k), lr_i>.
-    Positions are padded to a multiple of 8 for the kernel's 16-byte rows
-    where L or Lr is not one (a copy; the padding is masked)."""
-    _check_lds_args(lr, ref, inv_ref)
-    if _lib.dispatch_device(lr, "correlation_argmax_lds") == "cpu":
-        return correlation_argmax_lds_plain(lr, ref, inv_ref)
+def correlation_argmax_lds_plain(lr: torch.Tensor, ref: torch.Tensor,
+                                 inv_ref: torch.Tensor):
+    """S[i] = max_k <scaled ref[:, k], lr[:, i]> and its first argmax."""
+    return _first_max(lr, scaled_reference(ref, inv_ref).transpose(1, 2))
+
+
+def correlation_argmax_ld_plain(lr: torch.Tensor, ref: torch.Tensor):
+    """S[i] = max_k <ref[:, k], lr[:, i]> and its first argmax."""
+    return _first_max(lr, ref.transpose(1, 2))
+
+
+def correlation_argmax_plain(lr_n: torch.Tensor, ref_n: torch.Tensor):
+    """S[i] = max_k <ref_n[k], lr_n[:, i]> and its first argmax (port of the
+    XLA `correlation_argmax`, speinet_tpu/models/search_transfer.py:63)."""
+    return _first_max(lr_n, ref_n)
+
+
+def _pad8(t: torch.Tensor) -> torch.Tensor:
+    """Positions (the last axis) padded to a multiple of 8 for the kernel's
+    16-byte rows: a copy only where needed; the padding is masked."""
+    return F.pad(t, (0, -t.shape[2] % 8)) if t.shape[2] % 8 else t
+
+
+def _corr_unfold(what: str, lr: torch.Tensor, ref: torch.Tensor,
+                 inv_ref: torch.Tensor | None):
+    """Launch K5 (with inv_ref) or K6 (without) on D-major unfolds."""
     dev = lr.device
     _lib.require_cuda_tensor(lr, "lr", torch.bfloat16, dev)
     _lib.require_cuda_tensor(ref, "ref", torch.bfloat16, dev)
-    _lib.require_cuda_tensor(inv_ref, "inv_ref", torch.float32, dev)
+    if inv_ref is not None:
+        _lib.require_cuda_tensor(inv_ref, "inv_ref", torch.float32, dev)
     b, d, l = lr.shape
     lr_len = ref.shape[2]
-    pad8 = lambda t: F.pad(t, (0, -t.shape[2] % 8)) if t.shape[2] % 8 else t
-    lr_p, ref_p = pad8(lr), pad8(ref)
+    lr_p, ref_p = _pad8(lr), _pad8(ref)
     s = torch.empty((b, l), dtype=torch.float32, device=dev)
     idx = torch.empty((b, l), dtype=torch.int32, device=dev)
     lib = _lib.library()
-    _lib.check(lib.speinet_corr_unfold(lr_p.data_ptr(), ref_p.data_ptr(),
-                                       inv_ref.data_ptr(), s.data_ptr(),
-                                       idx.data_ptr(), b, d, l, lr_p.shape[2],
-                                       lr_len, ref_p.shape[2],
-                                       _lib.stream_ptr(lr)),
-               "correlation_argmax_lds")
-    _lib.LAUNCHES["correlation_argmax_lds"] += 1
+    _lib.check(lib.speinet_corr_unfold(
+        lr_p.data_ptr(), ref_p.data_ptr(),
+        None if inv_ref is None else inv_ref.data_ptr(), s.data_ptr(),
+        idx.data_ptr(), b, d, l, lr_p.shape[2], lr_len, ref_p.shape[2],
+        _lib.stream_ptr(lr)), what)
+    _lib.LAUNCHES[what] += 1
+    return s, idx
+
+
+def correlation_argmax_lds(lr: torch.Tensor, ref: torch.Tensor,
+                           inv_ref: torch.Tensor):
+    """lr [B, D, L], ref [B, D, Lr] raw unfolds, inv_ref [B, Lr] f32
+    -> (S [B, L] f32, idx [B, L] int32) of max_k <bf16(ref_k * inv_k), lr_i>."""
+    _check_unfold_args("correlation_argmax_lds", lr, ref, False, inv_ref)
+    if _lib.dispatch_device(lr, "correlation_argmax_lds") == "cpu":
+        return correlation_argmax_lds_plain(lr, ref, inv_ref)
+    return _corr_unfold("correlation_argmax_lds", lr, ref, inv_ref)
+
+
+def correlation_argmax_ld(lr: torch.Tensor, ref: torch.Tensor):
+    """lr [B, D, L], ref [B, D, Lr] (already scaled, `scaled_reference`)
+    -> (S [B, L] f32, idx [B, L] int32) of max_k <ref_k, lr_i>."""
+    _check_unfold_args("correlation_argmax_ld", lr, ref, False)
+    if _lib.dispatch_device(lr, "correlation_argmax_ld") == "cpu":
+        return correlation_argmax_ld_plain(lr, ref)
+    return _corr_unfold("correlation_argmax_ld", lr, ref, None)
+
+
+def correlation_argmax(lr_n: torch.Tensor, ref_n: torch.Tensor):
+    """lr_n [B, D, L] (columns L2-normalized), ref_n [B, Lr, D] (rows
+    L2-normalized) -> (S [B, L] f32, idx [B, L] int32) of max_k
+    <ref_n[k], lr_n[:, i]>."""
+    _check_unfold_args("correlation_argmax", lr_n, ref_n, True)
+    if _lib.dispatch_device(lr_n, "correlation_argmax") == "cpu":
+        return correlation_argmax_plain(lr_n, ref_n)
+    dev = lr_n.device
+    _lib.require_cuda_tensor(lr_n, "lr_n", torch.bfloat16, dev)
+    _lib.require_cuda_tensor(ref_n, "ref_n", torch.bfloat16, dev)
+    b, d, l = lr_n.shape
+    if d % 8:
+        raise ValueError(f"correlation_argmax kernel takes a depth that is a "
+                         f"multiple of 8 (16-byte reference rows), got {d}")
+    lr_p = _pad8(lr_n)
+    s = torch.empty((b, l), dtype=torch.float32, device=dev)
+    idx = torch.empty((b, l), dtype=torch.int32, device=dev)
+    lib = _lib.library()
+    _lib.check(lib.speinet_corr_rows(lr_p.data_ptr(), ref_n.data_ptr(),
+                                     s.data_ptr(), idx.data_ptr(), b, d, l,
+                                     lr_p.shape[2], ref_n.shape[1],
+                                     _lib.stream_ptr(lr_n)), "correlation_argmax")
+    _lib.LAUNCHES["correlation_argmax"] += 1
     return s, idx

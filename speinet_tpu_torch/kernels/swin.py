@@ -1,9 +1,17 @@
-"""K2 wrapper: one whole cross-attention Swin block (`csrc/swin_block.cu`).
+"""K2, K8 and K9 wrappers: the cross-attention Swin block, whole or split.
 
-Replaces `speinet_tpu/ops/pallas_swin.py::fused_swin_block`. x (K/V
-stream) and y (Q stream) arrive rolled and padded; the output is the whole
-block (x + attention + MLP), still rolled and padded. A CPU tensor takes
-the plain version; a CUDA tensor launches the kernel or raises.
+    K2 swin_block              `csrc/swin_block.cu`, replaces
+                               `speinet_tpu/ops/pallas_swin.py::fused_swin_block`
+    K8 window_cross_attention  `csrc/swin_attn.cu`, replaces
+                               `fused_window_cross_attention`
+    K9 ln_mlp                  `csrc/swin_mlp.cu`, replaces `fused_ln_mlp`
+
+x (K/V stream) and y (Q stream) arrive rolled and padded. K2 returns the
+whole block (x + attention + MLP), still rolled and padded; K8 only the
+attention branch (LN1, attention, projection), still rolled; K9 takes the
+block's residual stream after the attention, x + K8's output un-rolled,
+and adds the MLP. A CPU tensor takes the plain version; a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -101,20 +109,15 @@ def window_mask(hp: int, wp: int, ws: int, shift: int, pad_h: int,
     return mask
 
 
-def swin_block_plain(x: torch.Tensor, y: torch.Tensor, wts: SwinBlockWeights,
-                     ws: int, shift: int, pad_h: int, pad_w: int,
-                     heads: int) -> torch.Tensor:
-    """The kernel's arithmetic in float32, rounding to x.dtype where the
-    kernel stores: LN'd rows, Q/K/V, softmax probabilities, the attention
-    output, LN2 and the GELU output; residual stream in f32."""
-    b, hp, wp, c = x.shape
-    dt = x.dtype
+def _attention_plain(x: torch.Tensor, y: torch.Tensor, wts: SwinBlockWeights,
+                     ws: int, shift: int, pad_h: int, pad_w: int, heads: int):
+    """The window kernels' attention arithmetic in float32, rounding to
+    x.dtype where they store (LN'd rows, Q/K/V, softmax probabilities, the
+    attention output): (raw x windows, O Wp^T + bp) as [B*nW, N, C] f32."""
+    hp, wp, c = x.shape[1:]
     n = ws * ws
     hd = c // heads
-
-    def rnd(t):
-        return t.to(dt).float()
-
+    rnd = lambda t: t.to(x.dtype).float()
     xw_raw = window_partition(x, ws).float()
     yw_raw = window_partition(y, ws).float()
     bw = xw_raw.shape[0]
@@ -135,18 +138,55 @@ def swin_block_plain(x: torch.Tensor, y: torch.Tensor, wts: SwinBlockWeights,
                  bw, heads, n, n)
     p = rnd(torch.softmax(s, dim=-1))
     o = rnd((p @ v).transpose(1, 2).reshape(bw, n, c))
-    x2 = xw_raw + (o @ wts.wp.float().T + wts.bp)
-    xn2 = rnd(layer_norm(x2, wts.ln2_w, wts.ln2_b))
+    return xw_raw, o @ wts.wp.float().T + wts.bp
+
+
+def _mlp_plain(xf: torch.Tensor, wts: SwinBlockWeights,
+               dt: torch.dtype) -> torch.Tensor:
+    """fc2(gelu(fc1(LN2(xf)))) in float32 with the LN'd rows and the GELU
+    output rounded to dt, as the kernels store them."""
+    rnd = lambda t: t.to(dt).float()
+    xn2 = rnd(layer_norm(xf, wts.ln2_w, wts.ln2_b))
     hmid = rnd(F.gelu(xn2 @ wts.w1.float().T + wts.b1))
-    out = (x2 + (hmid @ wts.w2.float().T + wts.b2)).to(dt)
+    return hmid @ wts.w2.float().T + wts.b2
+
+
+def swin_block_plain(x: torch.Tensor, y: torch.Tensor, wts: SwinBlockWeights,
+                     ws: int, shift: int, pad_h: int, pad_w: int,
+                     heads: int) -> torch.Tensor:
+    """K2's arithmetic in float32, rounding to x.dtype where the kernel
+    stores: the attention's (`_attention_plain`), LN2 and the GELU output;
+    residual stream in f32."""
+    hp, wp = x.shape[1:3]
+    xw_raw, res = _attention_plain(x, y, wts, ws, shift, pad_h, pad_w, heads)
+    x2 = xw_raw + res
+    out = (x2 + _mlp_plain(x2, wts, x.dtype)).to(x.dtype)
     return window_reverse(out, ws, hp, wp)
+
+
+def window_cross_attention_plain(x: torch.Tensor, y: torch.Tensor,
+                                 wts: SwinBlockWeights, ws: int, shift: int,
+                                 pad_h: int, pad_w: int,
+                                 heads: int) -> torch.Tensor:
+    """K8's arithmetic: K2's attention, its projection rounded to x.dtype."""
+    hp, wp = x.shape[1:3]
+    _, res = _attention_plain(x, y, wts, ws, shift, pad_h, pad_w, heads)
+    return window_reverse(res.to(x.dtype), ws, hp, wp)
+
+
+def ln_mlp_plain(x: torch.Tensor, wts: SwinBlockWeights) -> torch.Tensor:
+    """K9's arithmetic: x + bf16(MLP(LN2(x))), the MLP's result rounded to
+    x.dtype before the residual add, as fused_ln_mlp rounds it."""
+    y = _mlp_plain(x.float(), wts, x.dtype).to(x.dtype)
+    return (x.float() + y.float()).to(x.dtype)
 
 
 def block_errors(out: torch.Tensor, ref: torch.Tensor, x: torch.Tensor) -> dict:
     """How far a block output `out` lies from the plain version's `ref`,
     measured against the block's update (ref - x), which a relative error of
-    the output would hide under the residual x. Both round one float32
-    residual sum to bf16, so they may differ by one bf16 step of the output
+    the output would hide under the residual x (K2, K9). K8's output has no
+    residual: it is all update, and is measured with x = 0. Both round one
+    float32 sum to bf16, so they may differ by one bf16 step of the output
     where that rounding flips; `max_excess` is what lies beyond that step."""
     o, r = out.float(), ref.float()
     err = (o - r).abs()
@@ -168,35 +208,61 @@ def block_errors_pass(e: dict) -> bool:
             and e["mean_abs_err"] <= 2.0 ** -10 * e["mean_update"])
 
 
-def swin_block(x: torch.Tensor, y: torch.Tensor, wts: SwinBlockWeights,
-               ws: int, shift: int, pad_h: int, pad_w: int,
-               heads: int) -> torch.Tensor:
-    """x, y [B, Hp, Wp, C] raw (un-normalized), rolled and padded ->
-    the block output [B, Hp, Wp, C], rolled and padded."""
+def _check_window_args(what: str, x: torch.Tensor, y: torch.Tensor, ws: int,
+                       heads: int) -> None:
     if x.shape != y.shape or x.ndim != 4:
-        raise ValueError(f"swin_block takes two equal [B, Hp, Wp, C] images, "
+        raise ValueError(f"{what} takes two equal [B, Hp, Wp, C] images, "
                          f"got {tuple(x.shape)} and {tuple(y.shape)}")
     b, hp, wp, c = x.shape
     if hp % ws or wp % ws or c % heads:
         raise ValueError(f"[{hp}, {wp}] is not a multiple of window {ws} or "
                          f"{c} channels do not split over {heads} heads")
     if not (x.is_contiguous() and y.is_contiguous()):
-        raise ValueError("swin_block: x and y must be contiguous")
+        raise ValueError(f"{what}: x and y must be contiguous")
+
+
+def _require_weights(wts: SwinBlockWeights, dev: torch.device, mats, vecs) -> None:
+    for name in mats:
+        _lib.require_cuda_tensor(getattr(wts, name), name, torch.bfloat16, dev)
+    for name in vecs:
+        _lib.require_cuda_tensor(getattr(wts, name), name, torch.float32, dev)
+
+
+def _require_window_kernel(what: str, ws: int, c: int, heads: int) -> None:
+    if ws != 5 or c // heads != 32 or c > 256:
+        raise ValueError(f"{what} kernel takes window 5, head dim 32 and "
+                         f"C <= 256; got window {ws}, C {c}, {heads} heads")
+
+
+def _require_mlp_kernel(what: str, c: int, hidden: int) -> None:
+    if c % 16 or c > 256 or hidden % 64:
+        raise ValueError(f"{what} kernel takes C a multiple of 16 up to 256 and "
+                         f"a hidden width divisible by 64; got C {c}, hidden "
+                         f"{hidden}")
+
+
+_ATTN_MATS = ("wkv", "wq", "wp")
+_ATTN_VECS = ("ln1_w", "ln1_b", "bkv", "bq", "bp", "relbias")
+_MLP_MATS = ("w1", "w2")
+_MLP_VECS = ("ln2_w", "ln2_b", "b1", "b2")
+
+
+def swin_block(x: torch.Tensor, y: torch.Tensor, wts: SwinBlockWeights,
+               ws: int, shift: int, pad_h: int, pad_w: int,
+               heads: int) -> torch.Tensor:
+    """x, y [B, Hp, Wp, C] raw (un-normalized), rolled and padded ->
+    the block output [B, Hp, Wp, C], rolled and padded."""
+    _check_window_args("swin_block", x, y, ws, heads)
     if _lib.dispatch_device(x, "swin_block") == "cpu":
         return swin_block_plain(x, y, wts, ws, shift, pad_h, pad_w, heads)
     dev = x.device
+    b, hp, wp, c = x.shape
     hidden = wts.w1.shape[0]
-    if ws != 5 or c // heads != 32 or c > 256 or hidden % 64:
-        raise ValueError(f"swin_block kernel takes window 5, head dim 32, "
-                         f"C <= 256 and a hidden width divisible by 64; got "
-                         f"window {ws}, C {c}, {heads} heads, hidden {hidden}")
+    _require_window_kernel("swin_block", ws, c, heads)
+    _require_mlp_kernel("swin_block", c, hidden)
     _lib.require_cuda_tensor(x, "x", torch.bfloat16, dev)
     _lib.require_cuda_tensor(y, "y", torch.bfloat16, dev)
-    for name in ("wkv", "wq", "wp", "w1", "w2"):
-        _lib.require_cuda_tensor(getattr(wts, name), name, torch.bfloat16, dev)
-    for name in ("ln1_w", "ln1_b", "bkv", "bq", "bp", "relbias", "ln2_w",
-                 "ln2_b", "b1", "b2"):
-        _lib.require_cuda_tensor(getattr(wts, name), name, torch.float32, dev)
+    _require_weights(wts, dev, _ATTN_MATS + _MLP_MATS, _ATTN_VECS + _MLP_VECS)
     out = torch.empty_like(x)
     ptr = lambda t: t.data_ptr()
     lib = _lib.library()
@@ -208,4 +274,58 @@ def swin_block(x: torch.Tensor, y: torch.Tensor, wts: SwinBlockWeights,
         ws, shift, hp - pad_h, wp - pad_w, float((c // heads) ** -0.5),
         _lib.stream_ptr(x)), "swin_block")
     _lib.LAUNCHES["swin_block"] += 1
+    return out
+
+
+def window_cross_attention(x: torch.Tensor, y: torch.Tensor,
+                           wts: SwinBlockWeights, ws: int, shift: int,
+                           pad_h: int, pad_w: int, heads: int) -> torch.Tensor:
+    """x, y [B, Hp, Wp, C] raw (un-normalized), rolled and padded -> the
+    attention branch [B, Hp, Wp, C] (LN1, attention, projection; before the
+    residual), rolled and padded. Only the LN1 / attention / projection
+    fields of `wts` are read."""
+    _check_window_args("window_cross_attention", x, y, ws, heads)
+    if _lib.dispatch_device(x, "window_cross_attention") == "cpu":
+        return window_cross_attention_plain(x, y, wts, ws, shift, pad_h, pad_w,
+                                            heads)
+    dev = x.device
+    b, hp, wp, c = x.shape
+    _require_window_kernel("window_cross_attention", ws, c, heads)
+    _lib.require_cuda_tensor(x, "x", torch.bfloat16, dev)
+    _lib.require_cuda_tensor(y, "y", torch.bfloat16, dev)
+    _require_weights(wts, dev, _ATTN_MATS, _ATTN_VECS)
+    out = torch.empty_like(x)
+    ptr = lambda t: t.data_ptr()
+    lib = _lib.library()
+    _lib.check(lib.speinet_swin_attn(
+        ptr(x), ptr(y), ptr(out), ptr(wts.ln1_w), ptr(wts.ln1_b), ptr(wts.wkv),
+        ptr(wts.bkv), ptr(wts.wq), ptr(wts.bq), ptr(wts.wp), ptr(wts.bp),
+        ptr(wts.relbias), b, hp, wp, c, heads, ws, shift, hp - pad_h, wp - pad_w,
+        float((c // heads) ** -0.5), _lib.stream_ptr(x)), "window_cross_attention")
+    _lib.LAUNCHES["window_cross_attention"] += 1
+    return out
+
+
+def ln_mlp(x: torch.Tensor, wts: SwinBlockWeights) -> torch.Tensor:
+    """x [..., C] token rows -> x + MLP(LN2(x)), same shape. Only the LN2 /
+    MLP fields of `wts` are read."""
+    if x.ndim < 2 or not x.is_contiguous():
+        raise ValueError(f"ln_mlp takes contiguous [..., C] rows, got "
+                         f"{tuple(x.shape)}")
+    if _lib.dispatch_device(x, "ln_mlp") == "cpu":
+        return ln_mlp_plain(x, wts)
+    dev = x.device
+    c = x.shape[-1]
+    hidden = wts.w1.shape[0]
+    _require_mlp_kernel("ln_mlp", c, hidden)
+    _lib.require_cuda_tensor(x, "x", torch.bfloat16, dev)
+    _require_weights(wts, dev, _MLP_MATS, _MLP_VECS)
+    out = torch.empty_like(x)
+    ptr = lambda t: t.data_ptr()
+    lib = _lib.library()
+    _lib.check(lib.speinet_swin_mlp(
+        ptr(x), ptr(out), ptr(wts.ln2_w), ptr(wts.ln2_b), ptr(wts.w1),
+        ptr(wts.b1), ptr(wts.w2), ptr(wts.b2), x.numel() // c, c, hidden,
+        _lib.stream_ptr(x)), "ln_mlp")
+    _lib.LAUNCHES["ln_mlp"] += 1
     return out

@@ -13,6 +13,18 @@ that forward so a video engine can reuse per-frame work across windows:
 Parameter names follow the original PyTorch model (recons_net.*, swin.*,
 conv_lv1..3, fusion, search*, SelfTransfer.*), including the defined but
 unused `search23`.
+
+Four keyword-only switches choose among the kernel paths the JAX package
+selects by environment variable, each defaulting, as there, to True:
+    swin_fuse_block  SPEINET_SWIN_FUSEBLOCK  K2, or K8 + K9 per Swin block
+    corr_raw         SPEINET_CORR_RAW        raw unfolds with folded norms,
+                                             or normalized unfolds through K7
+    corr_banded      SPEINET_CORR_BANDED     K4 for 'sharp' / 'self', or the
+                                             unfold path (K5 / K6)
+    corr_scaled      SPEINET_CORR_SCALED     K5, or K6 on a host-scaled
+                                             reference
+`corr_banded` and `corr_scaled` act only with `corr_raw`. None of them
+changes the parameters.
 """
 
 from __future__ import annotations
@@ -76,16 +88,21 @@ class SPEINet(nn.Module):
                  depths: Sequence[int] = (6, 6, 6, 6, 6, 6),
                  num_heads: Sequence[int] = (8, 8, 8, 8, 8, 8),
                  window_size: int = 5, mlp_ratio: float = 2.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, *,
+                 swin_fuse_block: bool = True, corr_raw: bool = True,
+                 corr_banded: bool = True, corr_scaled: bool = True):
         super().__init__()
         if n_sequence != 3:
             raise NotImplementedError("the port takes 3-frame windows "
                                       "(n_sequence 3)")
         f = n_feat
         self.dtype = dtype
+        self.corr_paths = dict(corr_raw=corr_raw, corr_banded=corr_banded,
+                               corr_scaled=corr_scaled)
         self.recons_net = ReconsVideo(f, n_resblock, out_channels)
         self.swin = SwinIRCross(4 * f, embed_dim, depths, num_heads,
-                                window_size, mlp_ratio)
+                                window_size, mlp_ratio,
+                                fuse_block=swin_fuse_block)
         self.conv_lv1 = nn.Conv2d(2 * f, f, 1)
         self.conv_lv2 = nn.Conv2d(4 * f, 2 * f, 1)
         self.conv_lv3 = nn.Conv2d(8 * f, 4 * f, 1)
@@ -100,14 +117,16 @@ class SPEINet(nn.Module):
         self.SelfTransfer = SelfTransfer(f)
 
     @classmethod
-    def from_config(cls, cfg: Config) -> "SPEINet":
+    def from_config(cls, cfg: Config, **paths: bool) -> "SPEINet":
+        """The model `cfg` describes; `paths` are the keyword-only switches."""
         if cfg.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype {cfg.compute_dtype!r}")
         return cls(n_sequence=cfg.n_sequence, n_feat=cfg.n_feat,
                    n_resblock=cfg.n_resblock, out_channels=cfg.n_colors,
                    embed_dim=cfg.embed_dim, depths=tuple(cfg.depths),
                    num_heads=tuple(cfg.num_heads), window_size=cfg.window_size,
-                   mlp_ratio=cfg.mlp_ratio, dtype=_DTYPES[cfg.compute_dtype])
+                   mlp_ratio=cfg.mlp_ratio, dtype=_DTYPES[cfg.compute_dtype],
+                   **paths)
 
     def _fast(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
         """3x3 refinement conv + ReLU through K1, bias rounded to the compute
@@ -195,7 +214,7 @@ class SPEINet(nn.Module):
         f_fusion = self._c1(self.fusion, f_fusion)
         weight_s, t3, t2, t1 = transfer(self.SelfTransfer, f_fusion, sharp_lv1,
                                         sharp_lv2, sharp_lv3, routing, self.dtype,
-                                        has_sharp)
+                                        has_sharp, **self.corr_paths)
         out = self._decode(f_fusion, weight_s.to(self.dtype), t3, t2, t1)
         return out.permute(0, 3, 1, 2).float()
 

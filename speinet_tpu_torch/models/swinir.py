@@ -7,8 +7,11 @@ stream x; both share norm1. Parameter names follow the original model:
     {norm1, attn.{qkv_x, qkv_y, proj, relative_position_bias_table}, norm2,
     mlp.{fc1, fc2}}, layers.{L}.conv, norm, conv_after_body, conv_last.
 Every block runs through the K2 kernel (`kernels/swin.py`) with its rolls
-through K3 (`kernels/roll.py`); the 3x3 convs were XLA convs on the TPU and
-are PyTorch calls here.
+through K3 (`kernels/roll.py`). With `swin_fuse_block=False` (the JAX
+package's SPEINET_SWIN_FUSEBLOCK=0) a block is split instead: K8 computes
+the attention branch, the residual add runs in the compute dtype, and K9
+adds the MLP, as the TPU ran blocks before K2. The 3x3 convs were XLA convs
+on the TPU and are PyTorch calls here.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from speinet_tpu_torch.kernels import SwinBlockWeights, roll2d, swin_block
+from speinet_tpu_torch.kernels import (SwinBlockWeights, ln_mlp, roll2d,
+                                       swin_block, window_cross_attention)
 from speinet_tpu_torch.kernels.swin import layer_norm
 from speinet_tpu_torch.models.blocks import conv_nhwc
 
@@ -72,14 +76,17 @@ class Mlp(nn.Module):
 
 
 class SwinBlock(nn.Module):
-    """One (shifted-)window cross-attention block (parity: swinir.py:163-281)."""
+    """One (shifted-)window cross-attention block (parity: swinir.py:163-281);
+    `fuse_block` picks K2 (True) or K8 + K9 (swinir.py:353-387)."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int = 5,
-                 shift_size: int = 0, mlp_ratio: float = 2.0):
+                 shift_size: int = 0, mlp_ratio: float = 2.0, *,
+                 fuse_block: bool = True):
         super().__init__()
         self.num_heads = num_heads
         self.window_size = window_size
         self.shift_size = shift_size
+        self.fuse_block = fuse_block
         self.norm1 = nn.LayerNorm(dim)
         self.attn = WindowCrossAttention(dim, window_size, num_heads)
         self.norm2 = nn.LayerNorm(dim)
@@ -121,31 +128,39 @@ class SwinBlock(nn.Module):
             if ss > 0:
                 xi = roll2d(xi, ss, ss)
                 yi = roll2d(yi, ss, ss)
-        out = swin_block(xi.contiguous(), yi.contiguous(), self.weights(dtype, ws),
-                         ws, ss, ph, pw, self.num_heads)
+        wts = self.weights(dtype, ws)
+        block = swin_block if self.fuse_block else window_cross_attention
+        out = block(xi.contiguous(), yi.contiguous(), wts, ws, ss, ph, pw,
+                    self.num_heads)
         if ss > 0:
             out = roll2d(out, -ss, -ss)
         if ph or pw:
             out = out[:, :hh, :ww]
-        return out.reshape(b, l, c)
+        out = out.reshape(b, l, c)
+        if self.fuse_block:
+            return out
+        return ln_mlp((x.to(dtype) + out).contiguous(), wts)
 
 
 class BasicLayer(nn.Module):
-    def __init__(self, dim, depth, num_heads, window_size, mlp_ratio):
+    def __init__(self, dim, depth, num_heads, window_size, mlp_ratio,
+                 fuse_block=True):
         super().__init__()
         self.blocks = nn.ModuleList(
             SwinBlock(dim, num_heads, window_size,
-                      0 if i % 2 == 0 else window_size // 2, mlp_ratio)
+                      0 if i % 2 == 0 else window_size // 2, mlp_ratio,
+                      fuse_block=fuse_block)
             for i in range(depth))
 
 
 class RSTB(nn.Module):
     """depth blocks + 3x3 conv + residual (parity: swinir.py:421-494)."""
 
-    def __init__(self, dim, depth, num_heads, window_size, mlp_ratio):
+    def __init__(self, dim, depth, num_heads, window_size, mlp_ratio,
+                 fuse_block=True):
         super().__init__()
         self.residual_group = BasicLayer(dim, depth, num_heads, window_size,
-                                         mlp_ratio)
+                                         mlp_ratio, fuse_block)
         self.conv = nn.Conv2d(dim, dim, 3, 1, 1)
 
     def forward(self, x, y, x_size, dtype):
@@ -172,14 +187,15 @@ class SwinIRCross(nn.Module):
     def __init__(self, in_chans: int, embed_dim: int = 256,
                  depths: Sequence[int] = (6, 6, 6, 6, 6, 6),
                  num_heads: Sequence[int] = (8, 8, 8, 8, 8, 8),
-                 window_size: int = 5, mlp_ratio: float = 2.0):
+                 window_size: int = 5, mlp_ratio: float = 2.0, *,
+                 fuse_block: bool = True):
         super().__init__()
         self.embed_dim = embed_dim
         self.window_size = window_size
         self.conv_first = nn.Conv2d(in_chans, embed_dim, 3, 1, 1)
         self.patch_embed = PatchEmbed(embed_dim)
         self.layers = nn.ModuleList(
-            RSTB(embed_dim, d, h, window_size, mlp_ratio)
+            RSTB(embed_dim, d, h, window_size, mlp_ratio, fuse_block)
             for d, h in zip(depths, num_heads))
         # the two SwinIR-level norms are flax nn.LayerNorm: eps 1e-6
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)

@@ -7,13 +7,18 @@ The transfer chain of the reference (SearchTransfer.py:36-46)
 is computed without the unfold: the 3x3 sub-tiles of every gathered patch
 are s x s tiles of `ref` on a one-tile-padded grid, the overlap-add's nine
 shifts are moved into the (small) index map, and the three pyramid scales
-share one row gather because they use the same tile-grid indices.
+share one row gather because they use the same tile-grid indices. That row
+gather is K10 (`kernels/gather.py::row_gather`), the port of the TPU kernel
+written to replace it (`speinet_tpu/ops/pallas_gather.py::row_gather`); it
+copies rows exactly, so the fold's sums are those of the indexing it took.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from speinet_tpu_torch.kernels import row_gather
 
 # transient bytes allowed for the gathered [chunk, 9L, W] rows; larger
 # batches are gathered a few samples at a time
@@ -83,10 +88,8 @@ def gather_fold3_nhwc(ref1: torch.Tensor, ref2: torch.Tensor,
 
     outs = []
     for i in range(0, b, cb):
-        r = rows[i:i + cb]
-        n = r.shape[0]
-        bidx = torch.arange(n, device=r.device)[:, None]
-        g = r[bidx, flat[i:i + cb]].reshape(n, nh, nw, 9, -1)
+        n = min(cb, b - i)
+        g = row_gather(rows[i:i + cb], flat[i:i + cb]).reshape(n, nh, nw, 9, -1)
         outs.append((fold(g[..., :w3], 1, c3),
                      fold(g[..., w3:w3 + w2], 2, c2),
                      fold(g[..., w3 + w2:], 4, c1)))

@@ -74,14 +74,14 @@ def test_corr_unfold_kernel(gen, h, w):
     """K5 on a mixed batch (sharp unfold, permuted self reference) at 720p
     lv3 and at a chop tile's lv3 (L = 15,675: padded to a multiple of 8)."""
     from speinet_tpu_torch.kernels.corr import scaled_reference
-    from speinet_tpu_torch.models.search_transfer import (mixed_reference,
+    from speinet_tpu_torch.models.search_transfer import (unfold_reference,
                                                           patch_inv_norms)
 
     f = torch.rand((2, h, w, 128), generator=gen, device="cuda").to(torch.bfloat16)
     sharp = torch.rand((2, h, w, 128), generator=gen, device="cuda").to(torch.bfloat16)
     hs = torch.tensor([True, False], device="cuda")
     lr, ref, inv = (t.contiguous() for t in
-                    mixed_reference(f, sharp, hs, patch_inv_norms(f)))
+                    unfold_reference(f, sharp, "mixed", hs, patch_inv_norms(f)))
     kernels.reset_launches()
     s, idx = kernels.correlation_argmax_lds(lr, ref, inv)
     assert kernels.LAUNCHES["correlation_argmax_lds"] == 1
@@ -118,3 +118,107 @@ def test_swin_block_kernel(gen, shift, pad_h, pad_w):
     # held to the block's update, not its output (kernels/swin.py)
     e = kernels.block_errors(out, ref, x)
     assert kernels.block_errors_pass(e), e
+
+
+def _swin_weights(gen, c=256, hid=512, heads=8):
+    from speinet_tpu_torch.models.swinir import relative_position_index
+
+    mat = lambda o, i: _bf16((o, i), gen, i ** -0.5)
+    vec = lambda n, s: torch.randn((n,), generator=gen, device="cuda") * s
+    table = vec(81 * heads, 0.1).reshape(81, heads)
+    idx = torch.from_numpy(relative_position_index(5, 5).reshape(-1)).cuda()
+    rel = table[idx].reshape(25, 25, heads).permute(2, 0, 1).contiguous()
+    return kernels.SwinBlockWeights(
+        1 + vec(c, 0.1), vec(c, 0.1), mat(2 * c, c), vec(2 * c, 0.1), mat(c, c),
+        vec(c, 0.1), mat(c, c), vec(c, 0.1), rel, 1 + vec(c, 0.1), vec(c, 0.1),
+        mat(hid, c), vec(hid, 0.1), mat(c, hid), vec(c, 0.1))
+
+
+@pytest.mark.parametrize("shift,pad_h,pad_w", [(0, 0, 0), (2, 0, 0), (2, 3, 1)])
+def test_window_cross_attention_kernel(gen, shift, pad_h, pad_w):
+    wts = _swin_weights(gen)
+    x = _bf16((3, 10, 15, 256), gen)      # 3 x 6 windows: a ragged last CTA
+    y = _bf16((3, 10, 15, 256), gen)
+    kernels.reset_launches()
+    out = kernels.window_cross_attention(x, y, wts, 5, shift, pad_h, pad_w, 8)
+    assert kernels.LAUNCHES["window_cross_attention"] == 1
+    ref = kernels.window_cross_attention_plain(x, y, wts, 5, shift, pad_h, pad_w, 8)
+    # the output is all update: held as K2 is, with x = 0
+    e = kernels.block_errors(out, ref, torch.zeros_like(ref))
+    assert kernels.block_errors_pass(e), e
+
+
+@pytest.mark.parametrize("rows", [300, 128])
+def test_ln_mlp_kernel(gen, rows):
+    """300 rows: a ragged last CTA of 44."""
+    wts = _swin_weights(gen)
+    x = _bf16((2, rows // 2, 256), gen)
+    kernels.reset_launches()
+    out = kernels.ln_mlp(x, wts)
+    assert kernels.LAUNCHES["ln_mlp"] == 1
+    ref = kernels.ln_mlp_plain(x, wts)
+    # held to the update (out - x), which the residual x would hide
+    e = kernels.block_errors(out, ref, x)
+    assert kernels.block_errors_pass(e), e
+
+
+@pytest.mark.parametrize("t,l,r", [(58, 90, 896), (7, 33, 8)])
+def test_row_gather_kernel(gen, t, l, r):
+    rows = _bf16((2, t, r), gen)
+    idx = torch.randint(0, t, (2, l), generator=gen, device="cuda")
+    for it in (torch.int64, torch.int32):
+        out = kernels.row_gather(rows, idx.to(it))
+        assert torch.equal(out, kernels.row_gather_plain(rows, idx.to(it)))
+
+
+def _assert_corr_rule(s, idx, s_p, idx_p, score_at):
+    """S within 1e-5 of its scale; an index may differ only where it attains
+    the max within that (the same bf16 products summed in another order)."""
+    tol = 1e-5 * max(s_p.abs().max().item(), 1.0)
+    assert (s - s_p).abs().max().item() <= tol
+    bi, p = (idx != idx_p).nonzero(as_tuple=True)
+    if bi.numel():
+        assert (score_at(bi, p, idx[bi, p].long()) - s_p[bi, p]).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("h,w", [(20, 36), (19, 33)])
+def test_corr_unfold_ld_kernel(gen, h, w):
+    """K6 on the host-scaled reference equals K5 on the raw one, bit for bit,
+    and follows its plain version; 19 x 33 = 627 positions: padded to 8."""
+    from speinet_tpu_torch.kernels.corr import scaled_reference
+    from speinet_tpu_torch.models.search_transfer import (patch_inv_norms,
+                                                          unfold_reference)
+
+    f = torch.rand((2, h, w, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    sharp = torch.rand((2, h, w, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    hs = torch.tensor([True, False], device="cuda")
+    lr, ref, inv = (t.contiguous() for t in
+                    unfold_reference(f, sharp, "mixed", hs, patch_inv_norms(f)))
+    sc = scaled_reference(ref, inv)
+    kernels.reset_launches()
+    s, idx = kernels.correlation_argmax_ld(lr, sc)
+    assert kernels.LAUNCHES["correlation_argmax_ld"] == 1
+    s5, idx5 = kernels.correlation_argmax_lds(lr, ref, inv)
+    assert torch.equal(s, s5) and torch.equal(idx, idx5)
+    s_p, idx_p = kernels.correlation_argmax_ld_plain(lr, sc)
+    _assert_corr_rule(s, idx, s_p, idx_p, lambda bi, p, k: (
+        lr[bi, :, p].float() * sc[bi, :, k].float()).sum(1))
+
+
+@pytest.mark.parametrize("h,w", [(20, 36), (19, 33)])
+def test_corr_rows_kernel(gen, h, w):
+    """K7 on L2-normalized operands, the reference as [B, Lr, D] rows."""
+    from speinet_tpu_torch.models.search_transfer import normalized_reference
+
+    f = torch.rand((2, h, w, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    sharp = torch.rand((2, h, w, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    hs = torch.tensor([True, False], device="cuda")
+    lr_n, ref_n = normalized_reference(f, sharp, "mixed", hs)
+    lr_n = lr_n.to(torch.bfloat16).contiguous()
+    ref_n = ref_n.to(torch.bfloat16).contiguous()
+    kernels.reset_launches()
+    s, idx = kernels.correlation_argmax(lr_n, ref_n)
+    assert kernels.LAUNCHES["correlation_argmax"] == 1
+    s_p, idx_p = kernels.correlation_argmax_plain(lr_n, ref_n)
+    _assert_corr_rule(s, idx, s_p, idx_p, lambda bi, p, k: (
+        lr_n[bi, :, p].float() * ref_n[bi, k].float()).sum(1))

@@ -114,6 +114,7 @@ def _wrapper_calls():
     w = torch.rand((3, 3, 32, 16), generator=g)
     b = torch.rand((16,), generator=g)
     inv = torch.rand((1, 100), generator=g)
+    idx = torch.randint(0, 100, (1, 37), generator=g)
     unf = lambda t: t.reshape(1, 100, 32).transpose(1, 2).contiguous()
     from speinet_tpu_torch.kernels.swin import SwinBlockWeights
 
@@ -132,11 +133,25 @@ def _wrapper_calls():
          lambda t: kernels.correlation_argmax_lds_plain(unf(t), unf(t), inv)[0]),
         ("swin_block", lambda t: kernels.swin_block(t, t, wts, 5, 0, 0, 0, 4),
          lambda t: kernels.swin_block_plain(t, t, wts, 5, 0, 0, 0, 4)),
+        ("correlation_argmax_ld",
+         lambda t: kernels.correlation_argmax_ld(unf(t), unf(t))[0],
+         lambda t: kernels.correlation_argmax_ld_plain(unf(t), unf(t))[0]),
+        ("correlation_argmax",
+         lambda t: kernels.correlation_argmax(unf(t), t.reshape(1, 100, 32))[0],
+         lambda t: kernels.correlation_argmax_plain(unf(t), t.reshape(1, 100, 32))[0]),
+        ("window_cross_attention",
+         lambda t: kernels.window_cross_attention(t, t, wts, 5, 0, 0, 0, 4),
+         lambda t: kernels.window_cross_attention_plain(t, t, wts, 5, 0, 0, 0, 4)),
+        ("ln_mlp", lambda t: kernels.ln_mlp(t, wts),
+         lambda t: kernels.ln_mlp_plain(t, wts)),
+        ("row_gather", lambda t: kernels.row_gather(t.reshape(1, 100, 32), idx),
+         lambda t: kernels.row_gather_plain(t.reshape(1, 100, 32), idx)),
     ], x
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     calls, x = _wrapper_calls()
+    assert sorted(name for name, _, _ in calls) == sorted(kernels.LAUNCHES)
     kernels.reset_launches()
     for name, fn, plain in calls:
         torch.testing.assert_close(fn(x), plain(x), rtol=0, atol=0, msg=name)
@@ -154,6 +169,10 @@ def test_other_devices_raise():
             fn = lambda t: kernels.correlation_argmax_lds(
                 t.reshape(1, 100, 32).transpose(1, 2).contiguous(),
                 t.reshape(1, 100, 32).transpose(1, 2).contiguous(), inv_meta)
+        elif name == "row_gather":
+            fn = lambda t: kernels.row_gather(t.reshape(1, 100, 32),
+                                              torch.zeros((1, 4), dtype=torch.int64,
+                                                          device="meta"))
         with pytest.raises(ValueError, match="device"):
             fn(xm)
 
