@@ -8,12 +8,15 @@ import numpy as np
 import torch
 
 from speinet_tpu_torch.detector.features import focus_features
+from speinet_tpu_torch.utils.device import resolve_device
 
 
 def video_features(frames: np.ndarray, kernel_size: int, batch: int = 16,
-                   device="cpu") -> np.ndarray:
+                   device="cuda") -> np.ndarray:
     """frames [N, H, W, 3] in 0..255 -> [N, 6] float32 focus features,
-    computed `batch` frames at a time on `device`."""
+    computed `batch` frames at a time on `device` (the card unless the
+    caller asks for the CPU)."""
+    device = resolve_device(device)
     x = np.asarray(frames, np.float32).transpose(0, 3, 1, 2)
     feats = []
     for i in range(0, len(x), batch):

@@ -50,6 +50,7 @@ from speinet_tpu_torch.detector.train import video_features
 from speinet_tpu_torch.models.speinet import SPEINet, init_weights
 from speinet_tpu_torch.ops.metrics import psnr_uint8_host, ssim_matlab
 from speinet_tpu_torch.parallel.chop import chop_forward
+from speinet_tpu_torch.utils.device import resolve_device
 
 # --default_data presets: (data_path, result_path) relative to the working
 # tree (parity: inference_SPEINet.py:626-697, which hardcodes user paths)
@@ -60,15 +61,6 @@ PRESETS = {
     "BSDtest_all": ("./data/deblur/BSDtest_all/BSD_3ms24ms",
                     "./infer_results/bsd_3ms24ms"),
 }
-
-
-def resolve_device(device) -> torch.device:
-    """The device to run on; CUDA unless the caller asked for the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "the plain PyTorch versions on the CPU")
-    return dev
 
 
 def _read_png(path: str) -> np.ndarray:

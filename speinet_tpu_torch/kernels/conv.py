@@ -43,6 +43,22 @@ def conv2d_plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
+def slab_weights(w: torch.Tensor) -> torch.Tensor:
+    """The kernel's weight operand: w [k, k, Cin, Co] in the order its weight
+    slabs stream through shared memory, so each slab is one contiguous bulk
+    copy (mirrors the tiling of `csrc/conv.cu`): [Co / N, slabs, N / 8,
+    slab rows, 8] over the flattened (tap, input channel) axis, input
+    channels zero-padded to cinp and the axis to whole slabs."""
+    k, _, cin, co = w.shape
+    n = next(t for t in (128, 64, 32, 16) if co % t == 0)
+    rows = 64 if n >= 64 else 128
+    cinp = 16 if cin <= 16 else 32 if cin <= 32 else -(-cin // 64) * 64
+    slabs = -(-(k * k * cinp) // rows)
+    flat = w.new_zeros((slabs * rows, co))
+    flat[:k * k * cinp].view(k * k, cinp, co)[:, :cin] = w.reshape(k * k, cin, co)
+    return flat.view(slabs, rows, co // n, n // 8, 8).permute(2, 0, 3, 1, 4).contiguous()
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
            relu: bool = False, stride: int = 1) -> torch.Tensor:
     """SAME (pad k//2) conv: x [B, H, W, C], w [k, k, C, Co] (HWIO),
@@ -64,7 +80,8 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     wo = (wd + 2 * pad - k) // stride + 1
     out = torch.empty((b, ho, wo, co), dtype=torch.bfloat16, device=dev)
     lib = _lib.library()
-    _lib.check(lib.speinet_conv2d(x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+    ws = slab_weights(w)
+    _lib.check(lib.speinet_conv2d(x.data_ptr(), ws.data_ptr(), bias.data_ptr(),
                                   out.data_ptr(), b, h, wd, c, co, k, stride,
                                   int(relu), _lib.stream_ptr(x)), "conv2d")
     _lib.LAUNCHES["conv2d"] += 1

@@ -32,7 +32,14 @@ def _bf16(shape, g, scale=1.0):
 
 @pytest.mark.parametrize("cin,co,k,stride,hw", [
     (3, 32, 5, 1, (20, 150)), (32, 32, 5, 1, (17, 130)), (32, 64, 5, 2, (20, 260)),
-    (64, 32, 3, 1, (9, 40)), (128, 128, 5, 1, (10, 40)), (8, 16, 3, 2, (7, 9))])
+    (64, 32, 3, 1, (9, 40)), (128, 128, 5, 1, (10, 40)), (8, 16, 3, 2, (7, 9)),
+    # widths off the 64-pixel tile, heights off the 2- or 4-row tile
+    (32, 64, 5, 1, (23, 100)), (64, 128, 5, 2, (19, 131)),
+    # Co 16 and 128, k 3 and 5, stride 2 on odd sizes, Cin 3
+    (3, 16, 3, 2, (19, 37)), (16, 128, 3, 2, (21, 67)), (128, 128, 3, 1, (13, 70)),
+    (3, 128, 5, 2, (11, 29)),
+    # input channels in 48-wide slabs, and padded from 24 to 32
+    (48, 16, 5, 1, (9, 75)), (24, 32, 3, 1, (6, 66))])
 def test_conv2d_kernel(gen, cin, co, k, stride, hw):
     x = _bf16((2, *hw, cin), gen)
     w = _bf16((k, k, cin, co), gen, (k * k * cin) ** -0.5)
@@ -118,6 +125,25 @@ def test_swin_block_kernel(gen, shift, pad_h, pad_w):
     # held to the block's update, not its output (kernels/swin.py)
     e = kernels.block_errors(out, ref, x)
     assert kernels.block_errors_pass(e), e
+
+
+@pytest.mark.parametrize("c,heads,hid,shape", [
+    (256, 8, 512, (1, 5, 35)),      # 7 windows: one full CTA and one of 2
+    (64, 2, 128, (2, 10, 15)),      # C = 64: the 64-column layout
+    (96, 3, 192, (1, 15, 10)),      # C = 96, padded to 128 columns
+    (64, 2, 128, (1, 5, 5))])       # a single window
+def test_swin_block_kernel_widths(gen, c, heads, hid, shape):
+    wts = _swin_weights(gen, c, hid, heads)
+    for shift, pad in ((0, 0), (2, 1)):
+        x = _bf16((*shape, c), gen)
+        y = _bf16((*shape, c), gen)
+        kernels.reset_launches()
+        out = kernels.swin_block(x, y, wts, 5, shift, pad, pad, heads)
+        assert kernels.LAUNCHES["swin_block"] == 1
+        ref = kernels.swin_block_plain(x, y, wts, 5, shift, pad, pad, heads)
+        # held to the block's update, not its output (kernels/swin.py)
+        e = kernels.block_errors(out, ref, x)
+        assert kernels.block_errors_pass(e), (shift, e)
 
 
 def _swin_weights(gen, c=256, hid=512, heads=8):

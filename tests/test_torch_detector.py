@@ -53,7 +53,7 @@ def test_focus_features_matches_jax(k):
 
 def test_video_features_matches_jax():
     frames = _frames(5, 40, 56, seed=42).astype(np.uint8)
-    got = video_features(frames, kernel_size=11, batch=2)
+    got = video_features(frames, kernel_size=11, batch=2, device="cpu")
     want = j_video_features(frames, kernel_size=11, batch=2)
     np.testing.assert_allclose(got, want, rtol=1e-4)
 

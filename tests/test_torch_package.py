@@ -181,3 +181,51 @@ def test_non_contiguous_input_is_refused():
     x = torch.rand((1, 10, 12, 32)).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.conv2d(x, torch.rand((3, 3, 32, 16)), torch.rand(16))
+
+
+def test_video_features_need_cuda_unless_cpu_is_asked(monkeypatch):
+    import numpy as np
+    from speinet_tpu_torch.detector.train import video_features
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    frames = np.random.default_rng(0).integers(0, 256, (2, 24, 32, 3), np.uint8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        video_features(frames, kernel_size=11)
+    feats = video_features(frames, kernel_size=11, device="cpu")
+    assert feats.shape == (2, 6) and np.isfinite(feats).all()
+
+
+CSRC_FILES = sorted(p.name for p in (PKG / "csrc").iterdir()
+                    if p.suffix in (".cu", ".cuh"))
+
+
+@pytest.mark.parametrize("name", CSRC_FILES)
+def test_every_kernel_source_is_in_the_build_key(name):
+    """A source or header left out of _lib.SOURCES / HEADERS would not be
+    compiled, or an edit to it would reuse a stale library."""
+    from speinet_tpu_torch.kernels import _lib
+
+    assert name in _lib.SOURCES + _lib.HEADERS
+
+
+@pytest.mark.parametrize("k,cin,co", [(5, 3, 32), (5, 128, 128), (3, 24, 32),
+                                      (5, 48, 16), (3, 64, 192)])
+def test_conv_slab_weights_order(k, cin, co):
+    """The conv kernel streams its weights as contiguous slabs:
+    [Co / N, slab, N / 8, slab row, 8] over the flattened (tap, padded input
+    channel) axis, zero past Cin and past the last tap."""
+    from speinet_tpu_torch.kernels.conv import slab_weights
+
+    w = torch.randn((k, k, cin, co), generator=torch.Generator().manual_seed(k * cin))
+    ws = slab_weights(w)
+    n = next(t for t in (128, 64, 32, 16) if co % t == 0)
+    rows = 64 if n >= 64 else 128
+    cinp = 16 if cin <= 16 else 32 if cin <= 32 else -(-cin // 64) * 64
+    assert ws.shape == (co // n, -(-(k * k * cinp) // rows), n // 8, rows, 8)
+    flat = ws.permute(1, 3, 0, 2, 4).reshape(-1, co)    # [slab * row, Co]
+    kidx = torch.arange(flat.shape[0])
+    tap, c = kidx // cinp, kidx % cinp
+    live = (tap < k * k) & (c < cin)
+    want = torch.zeros_like(flat)
+    want[live] = w.reshape(k * k, cin, co)[tap[live], c[live]]
+    assert torch.equal(flat, want)
