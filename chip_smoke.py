@@ -9,11 +9,13 @@ toolkit. In order it:
 1. builds the ten hand-written kernels (K1-K10) from
    `speinet_tpu_torch/csrc/`, one nvcc per source, all started together;
 2. holds each kernel against its plain PyTorch version on the card, in
-   bf16 at the shapes of the 720p paths, and times kernel, plain version
-   and (where one PyTorch call computes the same function) the library
-   call, beside the least time the card could take; K6 must equal K5 bit
-   for bit on the same operands, and the checks of K2 and K8 must reject
-   two planted faults each;
+   bf16 at the shapes of the 720p paths (and K1 at the two convs of the
+   `--n_feat 64` encoder whose rows are staged in channel groups), and
+   times kernel, plain version and (where one PyTorch call computes the
+   same function) the library call, beside the least time the card could
+   take; K6 must equal K5 bit for bit on the same operands, and the checks
+   of K2 and K8 must reject two planted faults each; for reference it also
+   times one cuBLAS bf16 bmm of the unfold correlation's product shape;
 3. runs four main paths on a synthetic 12-frame 1280x720 video at the full
    width of the SPEINet template (n_feat 32, embed_dim 256, depths 6x6, 8
    heads, window 5, bf16) with seeded random weights and 2 windows per
@@ -33,7 +35,8 @@ toolkit. In order it:
    the CPU, same weights, at 80x80: the cached restore in both routings,
    the direct forward on a mixed batch, the self-ensemble and the chopped
    forward, then the restores and the mixed forward of the `split`
-   configuration; and the sharpness detector's labels of the video;
+   configuration; the direct forward of a `--n_feat 64` model (Swin depth
+   cut to 2 blocks); and the sharpness detector's labels of the video;
 5. prints the `kernels` JSON line, the card's name and power limit, and as
    the last line {"ok": true, "device": {...}}.
 
@@ -97,6 +100,9 @@ def check_conv(rng_seed: int):
         ("search3 3x3 64->64 360x640", (1, 360, 640, 64), 3, 64, 1),
         ("search33 3x3 64->32 720x1280", (1, 720, 1280, 64), 3, 32, 1),
         ("search43 3x3 32->32 720x1280", (1, 720, 1280, 32), 3, 32, 1),
+        # --n_feat 64: rows too wide to stage whole (input channels in groups)
+        ("n_feat 64 lv3 res 5x5 256->256 2x180x320", (2, 180, 320, 256), 5, 256, 1),
+        ("n_feat 64 enc2 5x5/2 128->256 2x360x640", (2, 360, 640, 128), 5, 256, 2),
     ]
     g = torch.Generator(device="cuda").manual_seed(rng_seed)
     rows = []
@@ -321,8 +327,25 @@ def check_corr_unfold(rng_seed: int):
         rows.append(dict(shape=f"mixed B=2 D=1152 L=Lr={l} ({h}x{w}x128)",
                          max_abs_err=err, tol=tol, idx_differs=int(diff.shape[0]),
                          ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms,
-                         bound_by=by, flops=flops))
+                         bound_by=by, flops=flops,
+                         tflops=flops / ms / 1e9))
     return rows
+
+
+def bmm_reference(rng_seed: int):
+    """For reference only (no kernel of the port calls it): one cuBLAS bf16
+    `torch.bmm` of the plain version's reference-chunk product at 720p lv3,
+    [2, 2048, 1152] x [2, 1152, 57600], without the max: what the tensor
+    cores sustain at this depth."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(rng_seed)
+    a = torch.rand((2, 2048, 1152), generator=g, device="cuda").to(torch.bfloat16)
+    b = torch.rand((2, 1152, 57600), generator=g, device="cuda").to(torch.bfloat16)
+    ms = time_ms(lambda: torch.bmm(a, b))
+    flops = 2.0 * 2 * 2048 * 1152 * 57600
+    return dict(shape="bmm [2, 2048, 1152] x [2, 1152, 57600] bf16", ms=ms,
+                tflops=flops / ms / 1e9)
 
 
 def _corr_rule(what, s, idx, s_p, idx_p, score_at):
@@ -391,7 +414,8 @@ def check_corr_ld(rng_seed: int):
         rows.append(dict(shape=f"mixed B=2 D=1152 L=Lr={l} ({h}x{w}x128)",
                          equal_to_k5=True, max_abs_err=err, tol=tol,
                          idx_differs=nd, ms=ms, plain_ms=plain_ms, library_ms=None,
-                         bound_ms=bms, bound_by=by, flops=flops))
+                         bound_ms=bms, bound_by=by, flops=flops,
+                         tflops=flops / ms / 1e9))
     return rows
 
 
@@ -425,7 +449,8 @@ def check_corr_rows(rng_seed: int):
                                f"ref [B, Lr, D]",
                          max_abs_err=err, tol=tol, idx_differs=nd, ms=ms,
                          plain_ms=plain_ms, library_ms=None, bound_ms=bms,
-                         bound_by=by, flops=flops))
+                         bound_by=by, flops=flops,
+                         tflops=flops / ms / 1e9))
     return rows
 
 
@@ -618,13 +643,75 @@ def psnr_db(a, b, peak: float = 1.0) -> float:
     return 10 * math.log10(peak * peak / max(mse, 1e-20))
 
 
+def small_frames():
+    """5 synthetic 80x80 frames [5, 3, 80, 80] in [0, 1] on the CPU."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.stack(
+        [f.transpose(2, 0, 1) for f in synthetic_video(5, 80, 80, seed=2)])
+    ).float() / 255.0
+
+
+def mixed_batch(frames):
+    """[2, 5, 3, H, W]: the window, and the same with frame 3 zeroed (no
+    sharp neighbour: the 'self' routing)."""
+    import torch
+
+    blind = frames.clone()
+    blind[3] = 0.0
+    return torch.stack([frames, blind])
+
+
+def compare_to_cpu(name, gpu_o, cpu_o):
+    import torch
+
+    if not torch.isfinite(gpu_o).all():
+        raise AssertionError(f"{name}: card output not finite")
+    psnr = psnr_db(gpu_o, cpu_o)
+    # bf16 through 36 Swin blocks and ~30 ResBlocks against f32: the
+    # outputs must agree to well above the rounding noise floor
+    if not psnr > 30.0:
+        raise AssertionError(f"{name}: card vs CPU PSNR {psnr:.2f} dB")
+    return dict(max_abs_diff=(gpu_o - cpu_o).abs().max().item(), psnr_vs_cpu_f32=psnr)
+
+
+def check_wide(cfg):
+    """The `--n_feat 64` model (256 channels at lv3, D = 2304 unfolds; the
+    Swin depth cut to one stage of 2 blocks) on the card in bf16 against
+    its f32 CPU path, same seeded weights: the direct forward on the mixed
+    80x80 batch, in which K1 stages the input channels of the 5x5 256->256
+    and 5x5/2 128->256 convs in groups."""
+    import torch
+    from speinet_tpu_torch.kernels import LAUNCHES, reset_launches
+    from speinet_tpu_torch.models.speinet import SPEINet, init_weights
+
+    wide = cfg.replace(n_feat=64, depths=[2], num_heads=[8])
+    gpu = SPEINet.from_config(wide)
+    init_weights(gpu, 0)
+    gpu.to("cuda").eval()
+    cpu = SPEINet.from_config(wide.replace(compute_dtype="float32"))
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    cpu.eval()
+    x = mixed_batch(small_frames())
+    reset_launches()
+    with torch.inference_mode():
+        out = gpu(x.cuda()).float().cpu()
+        counts = dict(LAUNCHES)
+        ref = cpu(x)
+    for k in ("conv2d", "swin_block", "correlation_argmax_lds"):
+        if counts[k] <= 0:
+            raise AssertionError(f"n_feat 64 forward: {k} not launched")
+    return dict(forward_mixed=compare_to_cpu("n_feat 64 forward_mixed", out, ref),
+                launches=counts)
+
+
 def check_against_cpu(cfg, inf, full: bool = True, **paths):
     """The card (kernels, bf16) against the CPU plain path (f32), same
     weights and kernel-path switches `paths`, at 80x80: the cached restore
     of one window in both host routings, and on a mixed batch (sample 1 has
     frame 3 zeroed) the direct forward and, if `full`, the 8-way
     self-ensemble and the chopped forward."""
-    import numpy as np
     import torch
     from speinet_tpu_torch.infer import forward_x8
     from speinet_tpu_torch.models.speinet import SPEINet
@@ -633,21 +720,11 @@ def check_against_cpu(cfg, inf, full: bool = True, **paths):
     cpu = SPEINet.from_config(cfg.replace(compute_dtype="float32"), **paths)
     cpu.load_state_dict({k: v.cpu() for k, v in inf.model.state_dict().items()})
     cpu.eval()
-    frames = torch.from_numpy(np.stack(
-        [f.transpose(2, 0, 1) for f in synthetic_video(5, 80, 80, seed=2)])
-    ).float() / 255.0
+    frames = small_frames()
     results = {}
 
     def compare(name, gpu_o, cpu_o):
-        if not torch.isfinite(gpu_o).all():
-            raise AssertionError(f"{name}: card output not finite")
-        psnr = psnr_db(gpu_o, cpu_o)
-        results[name] = dict(max_abs_diff=(gpu_o - cpu_o).abs().max().item(),
-                             psnr_vs_cpu_f32=psnr)
-        # bf16 through 36 Swin blocks and ~30 ResBlocks against f32: the
-        # outputs must agree to well above the rounding noise floor
-        if not psnr > 30.0:
-            raise AssertionError(f"{name}: card vs CPU PSNR {psnr:.2f} dB")
+        results[name] = compare_to_cpu(name, gpu_o, cpu_o)
 
     for routing in ("sharp", "self"):
         outs = []
@@ -659,9 +736,7 @@ def check_against_cpu(cfg, inf, full: bool = True, **paths):
                                             routing)
             outs.append(o.float().cpu())
         compare(f"restore_{routing}", *outs)
-    blind = frames.clone()
-    blind[3] = 0.0
-    x = torch.stack([frames, blind])
+    x = mixed_batch(frames)
     runs = [("forward_mixed", lambda m, t: m(t))]
     if full:
         runs += [("forward_x8", lambda m, t: forward_x8(t, m)),
@@ -739,6 +814,8 @@ def main() -> int:
         for row in checks[name]:
             print(f"{name} {json.dumps(row)}", flush=True)
         print(f"{name}: checked in {time.time() - t1:.1f} s", flush=True)
+    print("cublas reference (not a kernel of the port): "
+          + json.dumps(bmm_reference(0)), flush=True)
 
     cfg = set_template(Config(template="SPEINet")).replace(
         compute_dtype="bfloat16", n_threads=4)
@@ -798,6 +875,7 @@ def main() -> int:
           flush=True)
     print("card vs cpu (split): " + json.dumps(
         check_against_cpu(cfg, engines["split"], full=False, **split)), flush=True)
+    print("card vs cpu (n_feat 64): " + json.dumps(check_wide(cfg)), flush=True)
     print("detector: " + json.dumps(check_detector(frames)), flush=True)
 
     meta = {
@@ -835,7 +913,9 @@ def main() -> int:
             bound_ms=sum(r["bound_ms"] for r in rows),
             bound_by="operations" if ops_ms * 2 >= sum(r["bound_ms"] for r in rows)
             else "bytes",
-            library_ms=None if any(v is None for v in lib) else sum(lib)))
+            library_ms=None if any(v is None for v in lib) else sum(lib),
+            tflops=sum(r.get("flops", 0.0) for r in rows)
+            / sum(r["ms"] for r in rows) / 1e9))
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

@@ -49,6 +49,13 @@
 // - The epilogue adds the f32 bias and applies ReLU to the accumulator
 //   fragments, packs them to bf16 and writes each pixel's channels with
 //   16-byte stores after a transpose within each quad of lanes.
+// - Wide inputs (GROUPED): where the tile's whole staged rows do not fit in
+//   shared memory (5x5 at 256 input channels, 5x5/2 at 128), the input
+//   channels are staged 64 at a time. The CTA walks the groups in order,
+//   each through all k * k taps, restaging its rows for every group after
+//   both consumer warpgroups have released the previous one (one barrier a
+//   group). A weight slab is then one (group, tap) pair of the wrapper's
+//   tap-major slab order: the producer reads slab tap * groups + group.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -67,6 +74,7 @@ constexpr int PRODUCERS = 128;
 constexpr int TILE_W = 64;          // output pixels per row of a tile
 constexpr int MAX_STAGES = 8;
 constexpr int MAX_ROWS = 32;        // staged input rows per tile
+constexpr int GROUP_C = 64;         // input channels staged at a time when GROUPED
 constexpr size_t SMEM_MAX = 227 * 1024;
 
 inline size_t align128(size_t n) { return (n + 127) & ~size_t(127); }
@@ -87,6 +95,7 @@ struct ConvArgs {
   const float* bias;
   bf16* out;
   int H, W, Cin, cinp, Ho, Wo, Co, k, stride, pad, relu, n_co;
+  int crow;       // channels of a staged row: cinp, or GROUP_C when GROUPED
   int seg_w;      // staged pixels per input row
   int npix;       // pixels of one parity block: seg_w, or (seg_w + 1) / 2 at stride 2
   int plane;      // bytes of one 8-channel chunk of a parity block: npix * 16
@@ -99,7 +108,7 @@ struct ConvArgs {
   int slab_bytes;
 };
 
-template <int N, int MT>
+template <int N, int MT, bool GROUPED>
 __global__ void __launch_bounds__(THREADS, (ctas_per_sm<N, MT>())) conv_kernel(
     const __grid_constant__ CUtensorMap xmap, const ConvArgs a) {
   constexpr int R = 2 * MT;
@@ -113,6 +122,8 @@ __global__ void __launch_bounds__(THREADS, (ctas_per_sm<N, MT>())) conv_kernel(
   auto full = [&](int i) { return bar_s + 8 * i; };
   auto empty = [&](int i) { return bar_s + 8 * (MAX_STAGES + i); };
   auto rowbar = [&](int i) { return bar_s + 8 * (2 * MAX_STAGES + i); };
+  // both consumer warpgroups are done with the staged rows of a group
+  const uint32_t rows_free = bar_s + 8 * (2 * MAX_STAGES + MAX_ROWS);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -122,7 +133,8 @@ __global__ void __launch_bounds__(THREADS, (ctas_per_sm<N, MT>())) conv_kernel(
   const int b = blockIdx.z / a.n_co;
   const int co0 = (blockIdx.z - b * a.n_co) * N;
   const int stride = a.stride;
-  const int c8n = a.cinp / 8;
+  const int c8n = a.crow / 8;
+  const int groups = a.cinp / a.crow;
   const uint32_t plane = a.plane;
   const int kk = a.k * a.k;
   const bool vec_in = (a.Cin % 8) == 0;
@@ -133,6 +145,7 @@ __global__ void __launch_bounds__(THREADS, (ctas_per_sm<N, MT>())) conv_kernel(
       mbar_init(empty(i), 2);
     }
     for (int i = 0; i < a.nrows; ++i) mbar_init(rowbar(i), vec_in ? 1 : PRODUCERS);
+    mbar_init(rows_free, 2);
     mbar_fence_init();
   }
   if (!vec_in) {   // scalar staging writes only the valid channels
@@ -149,9 +162,17 @@ __global__ void __launch_bounds__(THREADS, (ctas_per_sm<N, MT>())) conv_kernel(
     int issued = 0, st = 0;
     uint32_t ph = 0;
     for (int q = 0; q < a.n_slabs; ++q) {
+      // GROUPED: slab q is tap q % kk of channel group g = q / kk
+      const int g = GROUPED ? q / kk : 0;
+      const int tap = GROUPED ? q - g * kk : 0;
+      if (GROUPED && tap == 0 && g > 0) {
+        mbar_wait(rows_free, (g - 1) & 1);   // group g - 1's rows are released
+        issued = 0;
+      }
       // the input rows this slab's last tap reads, and the next kernel
       // row's, so no consumer waits on a row issued just before it
-      const int ky_last = min(kk - 1, (q * SLAB_K + SLAB_K - 1) / a.cinp) / a.k;
+      const int ky_last =
+          GROUPED ? tap / a.k : min(kk - 1, (q * SLAB_K + SLAB_K - 1) / a.cinp) / a.k;
       const int need = min(a.nrows, (R - 1) * stride + ky_last + 2);
       for (; issued < need; ++issued) {
         const int iy = oy0 * stride - a.pad + issued;
@@ -162,19 +183,25 @@ __global__ void __launch_bounds__(THREADS, (ctas_per_sm<N, MT>())) conv_kernel(
           // ix0 (even block) and ix0 + 1 (odd block); zeros past the image
           mbar_expect_tx(rowbar(issued), stride * c8n * plane);
           for (int par = 0; par < stride; ++par)
-            tma_load_5d(row_s + par * a.pblk, &xmap, rowbar(issued), 0, ix0 + par, 0, iy, b);
+            tma_load_5d(row_s + par * a.pblk, &xmap, rowbar(issued), 0, ix0 + par, g * c8n,
+                        iy, b);
         } else {
           if (iy >= 0 && iy < a.H) {
             const bf16* xrow = a.x + ((size_t)b * a.H + iy) * a.W * a.Cin;
-            for (int e = pt; e < a.seg_w * a.Cin; e += PRODUCERS) {
-              const int col = e / a.Cin;
-              const int c = e - col * a.Cin;
+            // GROUPED restages every channel slot of the group (zeros past
+            // Cin over the previous group's values); otherwise the valid
+            // channels over the zeroed tile
+            const int cn = GROUPED ? a.crow : a.Cin;
+            for (int e = pt; e < a.seg_w * cn; e += PRODUCERS) {
+              const int col = e / cn;
+              const int cl = e - col * cn;
+              const int c = g * a.crow + cl;
               const int ix = ix0 + col;
               const int par = stride == 2 ? col & 1 : 0;
               const int pos = stride == 2 ? col >> 1 : col;
               if (ix >= 0 && ix < a.W)
-                in[((size_t)issued * a.rowb + par * a.pblk + (c / 8) * plane) / 2 + pos * 8
-                   + (c & 7)] = xrow[(size_t)ix * a.Cin + c];
+                in[((size_t)issued * a.rowb + par * a.pblk + (cl / 8) * plane) / 2 + pos * 8
+                   + (cl & 7)] = c < a.Cin ? xrow[(size_t)ix * a.Cin + c] : __float2bfloat16(0.0f);
             }
           }
           mbar_arrive(rowbar(issued));
@@ -184,8 +211,9 @@ __global__ void __launch_bounds__(THREADS, (ctas_per_sm<N, MT>())) conv_kernel(
       if (pt == 0) {
         mbar_wait(empty(st), ph ^ 1);
         mbar_expect_tx(full(st), a.slab_bytes);
+        const int slab = GROUPED ? tap * groups + g : q;
         bulk_load(ring_s + st * a.slab_bytes,
-                  a.w + ((size_t)(co0 / N) * a.n_slabs + q) * (a.slab_bytes / 2),
+                  a.w + ((size_t)(co0 / N) * a.n_slabs + slab) * (a.slab_bytes / 2),
                   a.slab_bytes, full(st));
       }
       if (++st == a.stages) {
@@ -212,9 +240,18 @@ __global__ void __launch_bounds__(THREADS, (ctas_per_sm<N, MT>())) conv_kernel(
   int st = 0, prev = -1, waited = -1;
   uint32_t ph = 0;
   for (int q = 0; q < a.n_slabs; ++q) {
-    const int ky_last = min(kk - 1, (q * SLAB_K + SLAB_K - 1) / a.cinp) / a.k;
+    const int g = GROUPED ? q / kk : 0;
+    const int tap = GROUPED ? q - g * kk : 0;
+    if (GROUPED && tap == 0 && g > 0) {
+      // every MMA of group g - 1 has read its rows: hand them back
+      wgmma_wait<0>();
+      if (lane == 0 && wq == 0) mbar_arrive(rows_free);
+      waited = -1;
+    }
+    const int ky_last =
+        GROUPED ? tap / a.k : min(kk - 1, (q * SLAB_K + SLAB_K - 1) / a.cinp) / a.k;
     const int last_row = (wg * MT + MT - 1) * stride + ky_last;
-    for (; waited < last_row; ++waited) mbar_wait(rowbar(waited + 1), 0);
+    for (; waited < last_row; ++waited) mbar_wait(rowbar(waited + 1), g & 1);
     mbar_wait(full(st), ph);
     fence_proxy_async();    // scalar staging's st.shared (Cin % 8 != 0) -> wgmma reads
     const uint32_t slab = ring_s + st * a.slab_bytes;
@@ -233,11 +270,12 @@ __global__ void __launch_bounds__(THREADS, (ctas_per_sm<N, MT>())) conv_kernel(
         const uint64_t da = make_desc(in_s + ir * a.rowb + (c0 / 8) * plane + col0, plane, 128, 0);
         wgmma_ss<N, 1>(acc[t], da, db, 1);
       }
-      const bool wrap_c = c0 + 16 == a.cinp;
+      const bool wrap_c = c0 + 16 == a.crow;
       const bool wrap_x = wrap_c && kx + 1 == a.k;
       c0 = wrap_c ? 0 : c0 + 16;
       kx = wrap_x ? 0 : kx + (wrap_c ? 1 : 0);
       ky += wrap_x ? 1 : 0;
+      if (GROUPED && ky == a.k) ky = 0;   // the next group starts at tap 0
     }
     wgmma_commit();
     wgmma_wait<1>();    // the previous slab's MMAs have completed
@@ -289,7 +327,7 @@ __global__ void __launch_bounds__(THREADS, (ctas_per_sm<N, MT>())) conv_kernel(
   }
 }
 
-template <int N, int MT>
+template <int N, int MT, bool GROUPED>
 cudaError_t launch(ConvArgs a, int B, size_t smem, cudaStream_t stream) {
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr || (reinterpret_cast<uintptr_t>(a.w) & 15) != 0)
@@ -305,7 +343,7 @@ cudaError_t launch(ConvArgs a, int B, size_t smem, cudaStream_t stream) {
                               (cuuint64_t)B};
     const cuuint64_t xs[4] = {(cuuint64_t)a.Cin * 2, 16, (cuuint64_t)a.W * a.Cin * 2,
                               (cuuint64_t)a.H * a.W * a.Cin * 2};
-    const cuuint32_t xb[5] = {8, (cuuint32_t)(a.npix * a.stride), (cuuint32_t)a.cinp / 8, 1, 1};
+    const cuuint32_t xb[5] = {8, (cuuint32_t)(a.npix * a.stride), (cuuint32_t)a.crow / 8, 1, 1};
     const cuuint32_t xe[5] = {1, (cuuint32_t)a.stride, 1, 1, 1};
     if (xb[1] > 256 || xb[2] > 256 ||
         enc(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<bf16*>(a.x), xd, xs, xb, xe,
@@ -317,31 +355,33 @@ cudaError_t launch(ConvArgs a, int B, size_t smem, cudaStream_t stream) {
                   B * a.n_co);
   if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      conv_kernel<N, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      conv_kernel<N, MT, GROUPED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(conv_kernel<N, MT>,
+    e = cudaFuncSetAttribute(conv_kernel<N, MT, GROUPED>,
                              cudaFuncAttributePreferredSharedMemoryCarveout, 100);
   if (e != cudaSuccess) return e;
-  conv_kernel<N, MT><<<grid, THREADS, smem, stream>>>(xmap, a);
+  conv_kernel<N, MT, GROUPED><<<grid, THREADS, smem, stream>>>(xmap, a);
   return cudaGetLastError();
 }
 
 // shared-memory plan of a tile of 2 * MT output rows within `budget` bytes
-// with a ring of at least `min_stages` slabs; 0 if it does not fit
+// with a ring of at least `min_stages` slabs, staging `crow` input
+// channels of a row at a time; 0 if it does not fit
 template <int N>
-size_t plan(ConvArgs& a, int MT, size_t budget, int min_stages) {
+size_t plan(ConvArgs& a, int MT, size_t budget, int min_stages, int crow) {
   const int R = 2 * MT;
+  a.crow = crow;
   a.nrows = (R - 1) * a.stride + a.k;
   a.seg_w = (TILE_W - 1) * a.stride + a.k;
   a.npix = a.stride == 2 ? (a.seg_w + 1) / 2 : a.seg_w;
   a.plane = a.npix * 16;
-  a.pblk = (int)align128((size_t)a.cinp / 8 * a.plane);
+  a.pblk = (int)align128((size_t)crow / 8 * a.plane);
   a.rowb = a.stride * a.pblk;
   if (a.nrows > MAX_ROWS) return 0;
   a.slab_bytes = slab_steps<N>() * 16 * N * (int)sizeof(bf16);
   a.n_slabs = (a.k * a.k * a.cinp + slab_steps<N>() * 16 - 1) / (slab_steps<N>() * 16);
   const size_t in_bytes = (size_t)a.nrows * a.rowb;
-  const size_t bars = 8 * (2 * MAX_STAGES + MAX_ROWS);
+  const size_t bars = 8 * (2 * MAX_STAGES + MAX_ROWS + 1);
   if (in_bytes + bars + (size_t)min_stages * a.slab_bytes > budget) return 0;
   a.stages = (int)((budget - in_bytes - bars) / a.slab_bytes);
   if (a.stages > MAX_STAGES) a.stages = MAX_STAGES;
@@ -349,22 +389,64 @@ size_t plan(ConvArgs& a, int MT, size_t budget, int min_stages) {
   return in_bytes + (size_t)a.stages * a.slab_bytes + bars;
 }
 
+// the first shared-memory plan that fits, in this order: narrow tiles two
+// CTAs per SM; wider ones one CTA of four output rows (two rows with two
+// CTAs per SM measured slower at N = 64), then of two; then rows too wide
+// to stage whole, 64 input channels at a time (a slab is then one tap of
+// one group, which needs 64-row slabs: N >= 64). Sets mt and grouped;
+// returns the bytes of shared memory, 0 if no plan fits.
+template <int N>
+size_t choose(ConvArgs& a, int& mt, bool& grouped) {
+  struct Try {
+    int mt;
+    size_t budget;
+    int min_stages;
+    bool grouped;
+  };
+  const size_t half = SMEM_MAX / 2 - 1024;
+  const Try tries[] = {{2, half, 4, false}, {2, SMEM_MAX, 3, false}, {1, SMEM_MAX, 2, false},
+                       {2, SMEM_MAX, 3, true}, {1, SMEM_MAX, 2, true}};
+  for (const Try& t : tries) {
+    if (t.budget == half && ctas_per_sm<N, 2>() != 2) continue;
+    if (t.grouped && (N < 64 || a.cinp % GROUP_C != 0)) continue;
+    ConvArgs c = a;
+    const size_t smem = plan<N>(c, t.mt, t.budget, t.min_stages, t.grouped ? GROUP_C : a.cinp);
+    if (smem) {
+      a = c;
+      mt = t.mt;
+      grouped = t.grouped;
+      return smem;
+    }
+  }
+  return 0;
+}
+
 template <int N>
 cudaError_t launch_n(ConvArgs a, int B, cudaStream_t stream) {
   a.n_co = a.Co / N;
-  // narrow tiles run two CTAs per SM; wider ones one CTA of four output
-  // rows (two rows with two CTAs per SM measured slower at N = 64)
-  const size_t half = SMEM_MAX / 2 - 1024;
-  ConvArgs t = a;
-  size_t smem;
-  if (ctas_per_sm<N, 2>() == 2 && (smem = plan<N>(t, 2, half, 4)))
-    return launch<N, 2>(t, B, smem, stream);
-  t = a;
-  if ((smem = plan<N>(t, 2, SMEM_MAX, 3))) return launch<N, 2>(t, B, smem, stream);
-  t = a;
-  if ((smem = plan<N>(t, 1, SMEM_MAX, 2))) return launch<N, 1>(t, B, smem, stream);
-  return cudaErrorInvalidValue;
+  int mt;
+  bool grouped;
+  const size_t smem = choose<N>(a, mt, grouped);
+  if (smem == 0) return cudaErrorInvalidValue;
+  if constexpr (N >= 64) {
+    if (grouped)
+      return mt == 2 ? launch<N, 2, true>(a, B, smem, stream)
+                     : launch<N, 1, true>(a, B, smem, stream);
+  }
+  return mt == 2 ? launch<N, 2, false>(a, B, smem, stream)
+                 : launch<N, 1, false>(a, B, smem, stream);
 }
+
+template <int N>
+int fits_n(ConvArgs a) {
+  int mt;
+  bool grouped;
+  return choose<N>(a, mt, grouped) != 0;
+}
+
+// input channels padded to 16, 32 or a multiple of 64, so that a weight
+// slab of 64 or 128 rows is whole taps or a whole part of one
+int padded_cin(int Cin) { return Cin <= 16 ? 16 : Cin <= 32 ? 32 : (Cin + 63) / 64 * 64; }
 
 }  // namespace
 
@@ -395,12 +477,26 @@ extern "C" int speinet_conv2d(const void* x, const void* w, const void* bias,
   a.Ho = (H + 2 * a.pad - k) / stride + 1;
   a.Wo = (W + 2 * a.pad - k) / stride + 1;
   if (a.Ho < 1 || a.Wo < 1) return cudaErrorInvalidValue;
-  // input channels padded to 16, 32 or a multiple of 64, so that a weight
-  // slab of 64 or 128 rows is whole taps or a whole part of one
-  a.cinp = Cin <= 16 ? 16 : Cin <= 32 ? 32 : (Cin + 63) / 64 * 64;
+  a.cinp = padded_cin(Cin);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Co % 128 == 0) return launch_n<128>(a, B, s);
   if (Co % 64 == 0) return launch_n<64>(a, B, s);
   if (Co % 32 == 0) return launch_n<32>(a, B, s);
   return launch_n<16>(a, B, s);
+}
+
+// 1 if speinet_conv2d has a shared-memory plan for this conv (the wrapper
+// asks before it launches), else 0
+extern "C" int speinet_conv2d_fits(int Cin, int Co, int k, int stride) {
+  if (k % 2 == 0 || k < 1 || Co % 16 != 0 || Cin < 1 || (stride != 1 && stride != 2)) return 0;
+  ConvArgs a = {};
+  a.Cin = Cin;
+  a.Co = Co;
+  a.k = k;
+  a.stride = stride;
+  a.cinp = padded_cin(Cin);
+  if (Co % 128 == 0) return fits_n<128>(a);
+  if (Co % 64 == 0) return fits_n<64>(a);
+  if (Co % 32 == 0) return fits_n<32>(a);
+  return fits_n<16>(a);
 }

@@ -47,12 +47,13 @@ _L = ctypes.c_longlong
 # argument types of every exported function, by name
 SIGNATURES = {
     "speinet_conv2d": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "speinet_conv2d_fits": [_I, _I, _I, _I],
     "speinet_swin_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _F, _P],
     "speinet_roll2d": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     "speinet_banded_corr": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "speinet_corr_unfold": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "speinet_corr_unfold": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "speinet_corr_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "speinet_swin_attn": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                           _I, _I, _I, _I, _I, _I, _I, _F, _P],

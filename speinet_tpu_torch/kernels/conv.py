@@ -75,11 +75,14 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     if co % 16:
         raise ValueError(f"conv2d kernel takes a multiple of 16 output "
                          f"channels, got {co}")
+    lib = _lib.library()
+    if not lib.speinet_conv2d_fits(c, co, k, stride):
+        raise ValueError(f"conv2d kernel has no shared-memory plan for a {k}x{k} "
+                         f"stride-{stride} conv of {c} -> {co} channels")
     pad = k // 2
     ho = (h + 2 * pad - k) // stride + 1
     wo = (wd + 2 * pad - k) // stride + 1
     out = torch.empty((b, ho, wo, co), dtype=torch.bfloat16, device=dev)
-    lib = _lib.library()
     ws = slab_weights(w)
     _lib.check(lib.speinet_conv2d(x.data_ptr(), ws.data_ptr(), bias.data_ptr(),
                                   out.data_ptr(), b, h, wd, c, co, k, stride,

@@ -156,28 +156,44 @@ def correlation_argmax_plain(lr_n: torch.Tensor, ref_n: torch.Tensor):
 
 
 def _pad8(t: torch.Tensor) -> torch.Tensor:
-    """Positions (the last axis) padded to a multiple of 8 for the kernel's
-    16-byte rows: a copy only where needed; the padding is masked."""
+    """Positions (the last axis) padded to a multiple of 8, since a TMA
+    tensor map's row pitch is a multiple of 16 bytes: a copy only where
+    needed. The kernel's maps stop at the true length, so it never reads
+    the padding."""
     return F.pad(t, (0, -t.shape[2] % 8)) if t.shape[2] % 8 else t
+
+
+MAX_BATCH = 65535   # K5-K7 launch one grid row per sample
+
+
+def _check_batch(what: str, b: int) -> None:
+    if b > MAX_BATCH:
+        raise ValueError(f"{what} kernel takes at most {MAX_BATCH} samples, "
+                         f"got {b}")
 
 
 def _corr_unfold(what: str, lr: torch.Tensor, ref: torch.Tensor,
                  inv_ref: torch.Tensor | None):
-    """Launch K5 (with inv_ref) or K6 (without) on D-major unfolds."""
+    """Launch K5 (with inv_ref: the kernel's pre-pass first writes the
+    scaled reference into a scratch buffer of ref's padded shape) or K6
+    (without) on D-major unfolds."""
     dev = lr.device
     _lib.require_cuda_tensor(lr, "lr", torch.bfloat16, dev)
     _lib.require_cuda_tensor(ref, "ref", torch.bfloat16, dev)
     if inv_ref is not None:
         _lib.require_cuda_tensor(inv_ref, "inv_ref", torch.float32, dev)
     b, d, l = lr.shape
+    _check_batch(what, b)
     lr_len = ref.shape[2]
     lr_p, ref_p = _pad8(lr), _pad8(ref)
+    scratch = None if inv_ref is None else torch.empty_like(ref_p)
     s = torch.empty((b, l), dtype=torch.float32, device=dev)
     idx = torch.empty((b, l), dtype=torch.int32, device=dev)
     lib = _lib.library()
     _lib.check(lib.speinet_corr_unfold(
         lr_p.data_ptr(), ref_p.data_ptr(),
-        None if inv_ref is None else inv_ref.data_ptr(), s.data_ptr(),
+        None if inv_ref is None else inv_ref.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), s.data_ptr(),
         idx.data_ptr(), b, d, l, lr_p.shape[2], lr_len, ref_p.shape[2],
         _lib.stream_ptr(lr)), what)
     _lib.LAUNCHES[what] += 1
@@ -214,6 +230,7 @@ def correlation_argmax(lr_n: torch.Tensor, ref_n: torch.Tensor):
     _lib.require_cuda_tensor(lr_n, "lr_n", torch.bfloat16, dev)
     _lib.require_cuda_tensor(ref_n, "ref_n", torch.bfloat16, dev)
     b, d, l = lr_n.shape
+    _check_batch("correlation_argmax", b)
     if d % 8:
         raise ValueError(f"correlation_argmax kernel takes a depth that is a "
                          f"multiple of 8 (16-byte reference rows), got {d}")

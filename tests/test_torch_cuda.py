@@ -39,7 +39,10 @@ def _bf16(shape, g, scale=1.0):
     (3, 16, 3, 2, (19, 37)), (16, 128, 3, 2, (21, 67)), (128, 128, 3, 1, (13, 70)),
     (3, 128, 5, 2, (11, 29)),
     # input channels in 48-wide slabs, and padded from 24 to 32
-    (48, 16, 5, 1, (9, 75)), (24, 32, 3, 1, (6, 66))])
+    (48, 16, 5, 1, (9, 75)), (24, 32, 3, 1, (6, 66)),
+    # rows too wide to stage whole: input channels staged 64 at a time
+    (256, 256, 5, 1, (9, 70)), (128, 256, 5, 2, (19, 131)),
+    (320, 64, 5, 1, (7, 75)), (256, 128, 5, 2, (11, 67))])
 def test_conv2d_kernel(gen, cin, co, k, stride, hw):
     x = _bf16((2, *hw, cin), gen)
     w = _bf16((k, k, cin, co), gen, (k * k * cin) ** -0.5)
@@ -248,3 +251,138 @@ def test_corr_rows_kernel(gen, h, w):
     s_p, idx_p = kernels.correlation_argmax_plain(lr_n, ref_n)
     _assert_corr_rule(s, idx, s_p, idx_p, lambda bi, p, k: (
         lr_n[bi, :, p].float() * ref_n[bi, k].float()).sum(1))
+
+
+def _corr_case(gen, mode, b, d, l, lr_len):
+    """Signed operands, with every score of query columns 0-39 negative (a
+    positive reference against negated queries), so a zero-filled
+    reference position past Lr would win those rows if it were not
+    masked."""
+    lr = torch.randn((b, d, l), generator=gen, device="cuda")
+    lr[:, :, :40] = -lr[:, :, :40].abs()
+    ref = torch.randn((b, d, lr_len), generator=gen, device="cuda").abs()
+    lr, ref = lr.to(torch.bfloat16), ref.to(torch.bfloat16)
+    if mode == "rows":
+        ref = ref.transpose(1, 2).contiguous()
+    inv = torch.rand((b, lr_len), generator=gen, device="cuda") + 0.5
+    return lr, ref, inv
+
+
+_CORR_KERNELS = {
+    "lds": ("correlation_argmax_lds", lambda lr, ref, inv: kernels.correlation_argmax_lds(
+        lr, ref, inv), lambda lr, ref, inv: kernels.correlation_argmax_lds_plain(lr, ref, inv)),
+    "ld": ("correlation_argmax_ld", lambda lr, ref, inv: kernels.correlation_argmax_ld(
+        lr, ref), lambda lr, ref, inv: kernels.correlation_argmax_ld_plain(lr, ref)),
+    "rows": ("correlation_argmax", lambda lr, ref, inv: kernels.correlation_argmax(
+        lr, ref), lambda lr, ref, inv: kernels.correlation_argmax_plain(lr, ref)),
+}
+
+
+@pytest.mark.parametrize("mode,b,d,l,lr_len", [
+    # 3 query tiles of 128 (a cluster of two padded with an empty CTA) and
+    # a reference off the 256-wide tile
+    ("lds", 2, 144, 293, 300), ("ld", 2, 144, 293, 300), ("rows", 2, 144, 293, 300),
+    # depth tails: 72 and 144 rows (64-row chunks), 2304 (9 x 256 channels)
+    ("ld", 1, 72, 130, 257), ("rows", 3, 72, 421, 511),
+    ("lds", 3, 2304, 200, 300), ("ld", 1, 2304, 129, 700),
+    ("rows", 1, 2304, 293, 300), ("rows", 3, 2304, 64, 1030),
+    # lengths off 8 (padded rows) and a single query tile
+    ("lds", 1, 144, 45, 13)])
+def test_corr_unfold_edges(gen, mode, b, d, l, lr_len):
+    from speinet_tpu_torch.kernels.corr import scaled_reference
+
+    what, kernel, plain = _CORR_KERNELS[mode]
+    lr, ref, inv = _corr_case(gen, mode, b, d, l, lr_len)
+    kernels.reset_launches()
+    s, idx = kernel(lr, ref, inv)
+    assert kernels.LAUNCHES[what] == 1
+    s_p, idx_p = plain(lr, ref, inv)
+    assert (s[:, :40] < 0).all() and (idx >= 0).all() and (idx < lr_len).all()
+    ref_rows = {"lds": lambda: scaled_reference(ref, inv).transpose(1, 2),
+                "ld": lambda: ref.transpose(1, 2), "rows": lambda: ref}[mode]()
+    _assert_corr_rule(s, idx, s_p, idx_p, lambda bi, p, k: (
+        lr[bi, :, p].float() * ref_rows[bi, k].float()).sum(1))
+
+
+# ---- shape limits of the kernels that the JAX package does not have: the
+# largest shape each kernel takes, and the first one its wrapper refuses
+
+def test_conv2d_limits(gen):
+    x = _bf16((1, 8, 8, 32), gen)
+    b = torch.zeros((24,), device="cuda")
+    out = kernels.conv2d(x, _bf16((3, 3, 32, 16), gen, 0.1), b[:16])
+    assert out.shape == (1, 8, 8, 16)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        kernels.conv2d(x, _bf16((3, 3, 32, 24), gen, 0.1), b)
+    # Co a multiple of 64 stages wide inputs in channel groups; a narrower
+    # Co stages whole rows, which at 5x5 fit up to 256 input channels
+    x = _bf16((1, 6, 70, 256), gen)
+    out = kernels.conv2d(x, _bf16((5, 5, 256, 32), gen, 0.01), b[:16].repeat(2))
+    assert out.shape == (1, 6, 70, 32)
+    with pytest.raises(ValueError, match="no shared-memory plan"):
+        kernels.conv2d(_bf16((1, 6, 70, 320), gen), _bf16((5, 5, 320, 32), gen, 0.01),
+                       b[:16].repeat(2))
+
+
+@pytest.mark.parametrize("fn", ["swin_block", "window_cross_attention"])
+def test_window_kernel_limits(gen, fn):
+    call = getattr(kernels, fn)
+    wts = _swin_weights(gen, 256, 512, 8)
+    x = _bf16((1, 5, 5, 256), gen)
+    assert call(x, x, wts, 5, 0, 0, 0, 8).shape == x.shape
+    wide = _swin_weights(gen, 288, 576, 9)
+    x = _bf16((1, 5, 5, 288), gen)
+    with pytest.raises(ValueError, match="C <= 256"):
+        call(x, x, wide, 5, 0, 0, 0, 9)
+    narrow = _swin_weights(gen, 128, 256, 2)      # head dim 64
+    x = _bf16((1, 5, 5, 128), gen)
+    with pytest.raises(ValueError, match="head dim 32"):
+        call(x, x, narrow, 5, 0, 0, 0, 2)
+
+
+def test_ln_mlp_limits(gen):
+    x = _bf16((1, 10, 256), gen)
+    assert kernels.ln_mlp(x, _swin_weights(gen, 256, 512, 8)).shape == x.shape
+    with pytest.raises(ValueError, match="up to 256"):
+        kernels.ln_mlp(_bf16((1, 10, 272), gen), _swin_weights(gen, 272, 512, 8))
+    with pytest.raises(ValueError, match="divisible by 64"):
+        kernels.ln_mlp(x, _swin_weights(gen, 256, 544, 8))
+
+
+def test_banded_corr_limits(gen):
+    inv = torch.ones((1, 30), device="cuda")
+    f = _bf16((1, 5, 6, 256), gen)
+    assert kernels.banded_corr_argmax(f, f, inv)[0].shape == (1, 30)
+    f = _bf16((1, 5, 6, 272), gen)
+    with pytest.raises(ValueError, match="up to 256"):
+        kernels.banded_corr_argmax(f, f, inv)
+
+
+def test_row_gather_limits(gen):
+    idx = torch.zeros((1, 3), dtype=torch.int64, device="cuda")
+    assert kernels.row_gather(_bf16((1, 4, 8), gen), idx).shape == (1, 3, 8)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kernels.row_gather(_bf16((1, 4, 12), gen), idx)
+
+
+def test_corr_unfold_limits(gen):
+    from speinet_tpu_torch.kernels.corr import MAX_BATCH
+
+    for n, ok in ((MAX_BATCH, True), (MAX_BATCH + 1, False)):
+        lr = _bf16((n, 8, 1), gen)
+        inv = torch.ones((n, 1), device="cuda")
+        calls = (lambda: kernels.correlation_argmax_lds(lr, lr, inv),
+                 lambda: kernels.correlation_argmax_ld(lr, lr),
+                 lambda: kernels.correlation_argmax(lr, lr.transpose(1, 2).contiguous()))
+        for call in calls:
+            if ok:
+                s, idx = call()
+                assert torch.equal(idx, torch.zeros_like(idx))
+            else:
+                with pytest.raises(ValueError, match="at most"):
+                    call()
+    lr = _bf16((1, 2304, 20), gen)
+    assert kernels.correlation_argmax(lr, lr.transpose(1, 2).contiguous())[0].shape == (1, 20)
+    lr = _bf16((1, 2300, 20), gen)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kernels.correlation_argmax(lr, lr.transpose(1, 2).contiguous())

@@ -209,7 +209,8 @@ def test_every_kernel_source_is_in_the_build_key(name):
 
 
 @pytest.mark.parametrize("k,cin,co", [(5, 3, 32), (5, 128, 128), (3, 24, 32),
-                                      (5, 48, 16), (3, 64, 192)])
+                                      (5, 48, 16), (3, 64, 192), (5, 256, 256),
+                                      (5, 320, 64)])
 def test_conv_slab_weights_order(k, cin, co):
     """The conv kernel streams its weights as contiguous slabs:
     [Co / N, slab, N / 8, slab row, 8] over the flattened (tap, padded input
@@ -229,3 +230,37 @@ def test_conv_slab_weights_order(k, cin, co):
     want = torch.zeros_like(flat)
     want[live] = w.reshape(k * k, cin, co)[tap[live], c[live]]
     assert torch.equal(flat, want)
+
+
+@pytest.mark.parametrize("k,cin,co", [(5, 256, 256), (5, 128, 256), (5, 320, 64),
+                                      (3, 200, 128)])
+def test_conv_grouped_slab_index(k, cin, co):
+    """Where K1 stages the input channels 64 at a time (rows too wide for
+    shared memory), it walks (group g, tap) in that order and reads slab
+    tap * groups + g of the wrapper's tap-major layout: that slab holds
+    channels 64 g .. 64 g + 63 of the tap."""
+    from speinet_tpu_torch.kernels.conv import slab_weights
+
+    w = torch.randn((k, k, cin, co), generator=torch.Generator().manual_seed(cin))
+    ws = slab_weights(w)                      # [Co / N, slab, N / 8, 64, 8]
+    n = next(t for t in (128, 64, 32, 16) if co % t == 0)
+    cinp = -(-cin // 64) * 64
+    groups = cinp // 64
+    wp = torch.zeros((k * k, cinp, co))
+    wp[:, :cin] = w.reshape(k * k, cin, co)
+    for g in range(groups):
+        for tap in range(k * k):
+            slab = ws[:, tap * groups + g]    # [Co / N, N / 8, 64, 8]
+            got = slab.permute(2, 0, 1, 3).reshape(64, co)
+            assert torch.equal(got, wp[tap, 64 * g:64 * g + 64]), (g, tap)
+    assert ws.shape[1] == k * k * groups and n >= 64
+
+
+def test_unfold_kernels_batch_limit():
+    """K5-K7 launch one grid row per sample: the wrappers refuse more than
+    MAX_BATCH samples before any launch."""
+    from speinet_tpu_torch.kernels.corr import MAX_BATCH, _check_batch
+
+    _check_batch("correlation_argmax", MAX_BATCH)
+    with pytest.raises(ValueError, match="at most 65535"):
+        _check_batch("correlation_argmax", MAX_BATCH + 1)
