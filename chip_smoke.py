@@ -15,7 +15,8 @@ toolkit. In order it:
    same function) the library call, beside the least time the card could
    take; K6 must equal K5 bit for bit on the same operands, and the checks
    of K2 and K8 must reject two planted faults each; for reference it also
-   times one cuBLAS bf16 bmm of the unfold correlation's product shape;
+   times one cuBLAS bf16 bmm of the unfold correlation's product shape and
+   one cuBLAS bf16 matmul per weight product of K8 and K9;
 3. runs four main paths on a synthetic 12-frame 1280x720 video at the full
    width of the SPEINet template (n_feat 32, embed_dim 256, depths 6x6, 8
    heads, window 5, bf16) with seeded random weights and 2 windows per
@@ -346,6 +347,32 @@ def bmm_reference(rng_seed: int):
     flops = 2.0 * 2 * 2048 * 1152 * 57600
     return dict(shape="bmm [2, 2048, 1152] x [2, 1152, 57600] bf16", ms=ms,
                 tflops=flops / ms / 1e9)
+
+
+def swin_matmul_references(rng_seed: int):
+    """For reference only (no kernel of the port calls them): one cuBLAS bf16
+    `torch.matmul` per weight product of K8 (Q, K | V, proj) and of K9 (fc1,
+    fc2) at the check shapes (115,200 token rows, C 256, hidden 512): what
+    the tensor cores sustain on each product alone, without the LayerNorms,
+    the attention and the epilogues the kernels fuse around them."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(rng_seed)
+    rows = 2 * 180 * 320
+    out = {}
+    for kernel, prods in (("window_cross_attention", (("q", 256, 256), ("kv", 256, 512),
+                                                      ("proj", 256, 256))),
+                          ("ln_mlp", (("fc1", 256, 512), ("fc2", 512, 256)))):
+        lines = []
+        for name, k, n in prods:
+            a = torch.rand((rows, k), generator=g, device="cuda").to(torch.bfloat16)
+            b = torch.rand((k, n), generator=g, device="cuda").to(torch.bfloat16)
+            ms = time_ms(lambda: torch.matmul(a, b))
+            flops = 2.0 * rows * k * n
+            lines.append(dict(product=name, shape=f"[{rows}, {k}] x [{k}, {n}] bf16",
+                              ms=ms, tflops=flops / ms / 1e9))
+        out[kernel] = dict(products=lines, ms=sum(r["ms"] for r in lines))
+    return out
 
 
 def _corr_rule(what, s, idx, s_p, idx_p, score_at):
@@ -816,6 +843,9 @@ def main() -> int:
         print(f"{name}: checked in {time.time() - t1:.1f} s", flush=True)
     print("cublas reference (not a kernel of the port): "
           + json.dumps(bmm_reference(0)), flush=True)
+    for kernel, ref in swin_matmul_references(0).items():
+        print(f"cublas reference (not a kernel of the port; {kernel}'s weight "
+              "products): " + json.dumps(ref), flush=True)
 
     cfg = set_template(Config(template="SPEINet")).replace(
         compute_dtype="bfloat16", n_threads=4)

@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks shared by conv.cu (K1), swin_block.cu
-// (K2) and corr_unfold.cu (K5-K7): mbarriers, asynchronous copies with
+// Hopper (sm_90a) building blocks shared by conv.cu (K1), the Swin kernels
+// (K2, K8, K9, through swin_wgmma.cuh) and corr_unfold.cu (K5-K7): mbarriers, asynchronous copies with
 // mbarrier completion (bulk copies, TMA tile loads, multicast to a
 // cluster, and the driver entry point that encodes their tensor maps),
 // cluster rank / barrier / remote arrive, warpgroup MMAs (wgmma.mma_async,
@@ -150,8 +150,14 @@ __device__ __forceinline__ void tma_load_5d(uint32_t dst, const void* map, uint3
       : "memory");
 }
 
-// TMA store of a 4-D box from shared memory; then bulk_commit() and
-// bulk_wait_read() before the shared memory may change
+// TMA stores of a 2-D / 4-D box from shared memory; then bulk_commit()
+// and bulk_wait_read() before the shared memory may change
+__device__ __forceinline__ void tma_store_2d(const void* map, uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
 __device__ __forceinline__ void tma_store_4d(const void* map, uint32_t src, int c0, int c1,
                                              int c2, int c3) {
   asm volatile(

@@ -5,68 +5,92 @@
 // (pallas_call at :629, body _kernel :32). For every window of the rolled /
 // padded images x (the K/V stream) and y (the Q stream):
 //     xn, yn = LN1(x), LN1(y)                           (f32 math, eps 1e-5)
-//     q = (yn Wq + bq) * hd^-1/2,  k|v = xn Wkv + bkv    (bf16 operands, f32 sums)
-//     per head: O = softmax(q k^T + relpos_bias + mask) v  (f32 softmax)
+//     q = bf16((yn Wq + bq) * hd^-1/2),  k|v = bf16(xn Wkv + bkv)
+//     per head: O = bf16(bf16(softmax(q k^T + relpos_bias + mask)) v)
 //     out = bf16(O Wp + bp)
-// The output is the attention branch alone, before the residual and still
-// rolled / padded; the caller rolls back, crops, adds it to x and runs K9.
-// The mask comes from window coordinates, as in K2; the TPU's packed
-// g-window masks and block-diagonal bias are MXU tiling devices and are
-// not carried over.
+// (bf16 operands, f32 sums and softmax; the rounding points of _kernel
+// :53-58 and :80-84). The output is the attention branch alone, before the
+// residual and still rolled / padded; the caller rolls back, crops, adds it
+// to x and runs K9. The mask comes from window coordinates, as in K2; the
+// TPU's packed g-window masks and block-diagonal bias are MXU tiling
+// devices and are not carried over.
 //
 // Bound on the H100: operations. At [2, 180, 320, 256], 8 heads, window 5
 // the projections take 8 C^2 and the scores 4 N C FLOP per token, ~6.3e10
 // FLOP (0.064 ms at 989 TFLOP/s) against 177 MB of x, y and output
-// (0.053 ms). Design: K2's attention stage (swin_common.cuh::attention)
-// unchanged, then the projection as a [128 x C] x [C x C] WMMA product
-// whose bf16 tiles land in the dead LN1 buffer and go out row by row to
-// their pixels. ~160 KB of shared memory, one CTA per SM.
+// (0.053 ms). Design: K2's pipeline up to and including the projection,
+// from swin_wgmma.cuh (its note has the stages): y and x windows by TMA
+// into the LN tile, LN1 in place, Q on wgmma, K|V two heads at a time on
+// wgmma, the attention on mma.sync, the projection on wgmma, the weights
+// through a TMA ring that a producer warp keeps ahead. The epilogue is
+// K8's own: + bp, rounded to bf16 into the LN tile (dead since the last
+// K|V GEMM), stored a window box at a time by TMA. No residual, so x is
+// loaded once. Shared memory at C = 256: LN tile 64 KB, Q / O 64 KB, a
+// 3-stage ring of 16 KB slabs, K|V of two heads 34 KB, masks and bias
+// 5.4 KB (~221 KB, one CTA per SM); registers: the projection's 128 f32
+// accumulators a consumer thread (232 after setmaxnreg).
 
-#include "swin_common.cuh"
+#include "swin_wgmma.cuh"
 
 using namespace swin;
 
 namespace {
 
-__global__ void __launch_bounds__(THREADS, 1) swin_attn_kernel(const Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* bufA = reinterpret_cast<bf16*>(smem);              // yn, xn, then the output
-  bf16* bufB = reinterpret_cast<bf16*>(smem + a.off_b);     // Q -> O
-  bf16* rc = reinterpret_cast<bf16*>(smem + a.off_c);       // K_h | V_h
-  float* stage = reinterpret_cast<float*>(smem + a.off_s);  // [WARPS][16x16]
+struct Maps {
+  CUtensorMap q, kv, p;   // weights, [rows, K] in 64 x rows boxes
+  CUtensorMap x, y, o;    // images, one window's 64 channels a box
+};
 
-  const int C = a.C;
-  const int ldb = a.ldb;
+template <int CP>
+__global__ void __launch_bounds__(THREADS, 1) swin_attn_kernel(
+    const __grid_constant__ Maps maps, const WinArgs a) {
+  constexpr int NP = Tile<CP>::NP, NH = Tile<CP>::NH;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const WinSmem s = win_smem(smem, a);
   const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
   const int win0 = blockIdx.x * G;
-  const int total_win = a.B * (a.Hp / WS) * (a.Wp / WS);
-  float* st = stage + warp * 256;
 
-  attention(a, bufA, bufB, rc, st, win0, total_win);
-
-  // ---- O Wp^T + bp -> bf16 into bufA (xn is dead)
-  for (int ni = warp; ni < C / 16; ni += WARPS) {
-    Acc acc[8];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) wmma::fill_fragment(acc[r], 0.0f);
-    mma_rows<8>(acc, bufB, ldb, 0, a.wp + (size_t)ni * 16 * C, C, C);
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-      store_bf16<false>(acc[r], st, bufA + (size_t)r * 16 * ldb + ni * 16, ldb,
-                        a.bp + ni * 16, 1.0f, lane);
-  }
+  // ring barriers, then y's and x's window barriers
+  if (threadIdx.x == 0) init_barriers(s.bar_s, a.stages, 2);
   __syncthreads();
 
-  // ---- rows out to their pixels
-  if (lane * 8 < C) {
-    for (int mm = warp; mm < M; mm += WARPS) {
-      const long long off = pix_offset(a, mm, win0, total_win);
-      if (off >= 0)
-        *reinterpret_cast<uint4*>(a.out + off + lane * 8) =
-            *reinterpret_cast<const uint4*>(bufA + (size_t)mm * ldb + lane * 8);
-    }
+  if (warp >= 8) {
+    // ---------------- producer: Q, K | V and proj slabs in consumption order
+    producer_regs();
+    if (warp != 8 || (threadIdx.x & 31) != 0) return;
+    Producer pr{s.ring_s, s.bar_s, a.stages, 0, 0};
+    produce_attn<CP>(pr, &maps.q, &maps.kv, &maps.p, a.heads, a.C);
+    return;
   }
+
+  // ---------------- consumers
+  consumer_regs();
+  Ring ring{s.ring_s, s.bar_s, a.stages, 0, 0};
+  float res[NH][NP / 2];
+  window_attention<CP>(a, s, &maps.x, &maps.y, ring, win0, false, res);
+  // ---- out = bf16(O Wp^T + bp), the windows by TMA
+  store_windows<CP>(a, s, &maps.o, res, a.bp, win0);
+}
+
+template <int CP>
+cudaError_t launch(WinArgs a, const void* wq, const void* wkv, const void* wp,
+                   cudaStream_t stream) {
+  constexpr int NP = Tile<CP>::NP;
+  Maps maps;
+  if (!make_map(&maps.q, wq, a.C, a.C, NP) || !make_map(&maps.kv, wkv, a.C, 2 * a.C, HD)
+      || !make_map(&maps.p, wp, a.C, a.C, NP) || !make_img_map(&maps.x, a.x, a)
+      || !make_img_map(&maps.y, a.y, a) || !make_img_map(&maps.o, a.out, a))
+    return cudaErrorInvalidValue;
+  const int smem = window_layout(a, CP, false);
+  if (smem == 0) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      swin_attn_kernel<CP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const int blocks = (a.total_win + G - 1) / G;
+  swin_attn_kernel<CP><<<blocks, THREADS, smem, stream>>>(maps, a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -80,45 +104,17 @@ extern "C" int speinet_swin_attn(
     const void* bq, const void* wp, const void* bp, const void* relbias,
     int B, int Hp, int Wp, int C, int heads, int ws, int shift, int h_valid,
     int w_valid, float scale, void* stream) {
-  if (ws != WS || Hp % WS != 0 || Wp % WS != 0 || C % 16 != 0 || C > 256 ||
-      heads * HD != C || shift < 0 || shift >= WS || h_valid < 1 ||
-      h_valid > Hp || w_valid < 1 || w_valid > Wp)
+  WinArgs a = {};
+  if (!window_args(a, x, y, out, B, Hp, Wp, C, heads, ws, shift, h_valid, w_valid, scale))
     return cudaErrorInvalidValue;
-  const long long total_win = (long long)B * (Hp / WS) * (Wp / WS);
-  const long long blocks = (total_win + G - 1) / G;
-  if (blocks < 1 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  Args a = {};
-  a.x = static_cast<const bf16*>(x);
-  a.y = static_cast<const bf16*>(y);
-  a.out = static_cast<bf16*>(out);
   a.ln1w = static_cast<const float*>(ln1w);
   a.ln1b = static_cast<const float*>(ln1b);
-  a.wkv = static_cast<const bf16*>(wkv);
   a.bkv = static_cast<const float*>(bkv);
-  a.wq = static_cast<const bf16*>(wq);
   a.bq = static_cast<const float*>(bq);
-  a.wp = static_cast<const bf16*>(wp);
   a.bp = static_cast<const float*>(bp);
   a.relbias = static_cast<const float*>(relbias);
-  a.B = B;
-  a.Hp = Hp;
-  a.Wp = Wp;
-  a.C = C;
-  a.heads = heads;
-  a.shift = shift;
-  a.h_valid = h_valid;
-  a.w_valid = w_valid;
-  a.scale = scale;
-  a.ldb = C + 8;   // +16 bytes per row: conflict-free fragment loads
-  const int bytes_ab = align128(M * a.ldb * 2);
-  a.off_b = bytes_ab;
-  a.off_c = 2 * bytes_ab;
-  a.off_s = a.off_c + align128(2 * M * HD * 2);
-  const int smem = a.off_s + WARPS * 256 * 4;
-  cudaError_t e = cudaFuncSetAttribute(
-      swin_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  swin_attn_kernel<<<(unsigned)blocks, THREADS, smem,
-                     static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C <= 64) return launch<64>(a, wq, wkv, wp, s);
+  if (C <= 128) return launch<128>(a, wq, wkv, wp, s);
+  return launch<256>(a, wq, wkv, wp, s);
 }

@@ -1,5 +1,5 @@
-// Warp-level tensor-core helpers shared by swin_block.cu (the window
-// attention), corr_banded.cu and corr_unfold.cu:
+// Warp-level tensor-core helpers shared by swin_wgmma.cuh (the window
+// attention of K2 and K8) and corr_banded.cu:
 // `ldmatrix` loads of 8x8 bf16 sub-matrices from shared memory and the
 // m16n8k16 bf16 `mma.sync` with f32 accumulation (sm_80 and later).
 #pragma once

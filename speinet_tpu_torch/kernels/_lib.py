@@ -30,7 +30,7 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 SOURCES = ("conv.cu", "swin_block.cu", "roll.cu", "corr_banded.cu",
            "corr_unfold.cu", "row_gather.cu", "swin_attn.cu", "swin_mlp.cu")
-HEADERS = ("tensor_core.cuh", "swin_common.cuh", "hopper.cuh")
+HEADERS = ("tensor_core.cuh", "swin_wgmma.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo")
 

@@ -177,6 +177,42 @@ def test_window_cross_attention_kernel(gen, shift, pad_h, pad_w):
     assert kernels.block_errors_pass(e), e
 
 
+@pytest.mark.parametrize("c,heads,hid,shape", [
+    (64, 2, 128, (2, 10, 15)),      # C = 64: the 64-column layout
+    (96, 3, 192, (1, 15, 10)),      # C = 96, padded to 128 columns
+    (64, 2, 128, (1, 5, 5))])       # a single window
+def test_window_cross_attention_kernel_widths(gen, c, heads, hid, shape):
+    wts = _swin_weights(gen, c, hid, heads)
+    for shift, pad in ((0, 0), (2, 1)):
+        x = _bf16((*shape, c), gen)
+        y = _bf16((*shape, c), gen)
+        kernels.reset_launches()
+        out = kernels.window_cross_attention(x, y, wts, 5, shift, pad, pad, heads)
+        assert kernels.LAUNCHES["window_cross_attention"] == 1
+        ref = kernels.window_cross_attention_plain(x, y, wts, 5, shift, pad, pad,
+                                                   heads)
+        # the output is all update: held as K2 is, with x = 0
+        e = kernels.block_errors(out, ref, torch.zeros_like(ref))
+        assert kernels.block_errors_pass(e), (shift, e)
+
+
+@pytest.mark.parametrize("c,heads,hid,rows", [
+    (64, 2, 128, 300),       # C = 64: the 64-column layout
+    (96, 3, 192, 300),       # C = 96 padded to 128; hidden 192: half a chunk
+    (256, 8, 512, 44),       # fewer rows than one CTA
+    (96, 3, 192, 44)])
+def test_ln_mlp_kernel_widths(gen, c, heads, hid, rows):
+    wts = _swin_weights(gen, c, hid, heads)
+    x = _bf16((1, rows, c), gen)
+    kernels.reset_launches()
+    out = kernels.ln_mlp(x, wts)
+    assert kernels.LAUNCHES["ln_mlp"] == 1
+    ref = kernels.ln_mlp_plain(x, wts)
+    # held to the update (out - x), which the residual x would hide
+    e = kernels.block_errors(out, ref, x)
+    assert kernels.block_errors_pass(e), e
+
+
 @pytest.mark.parametrize("rows", [300, 128])
 def test_ln_mlp_kernel(gen, rows):
     """300 rows: a ragged last CTA of 44."""
