@@ -304,22 +304,6 @@ __global__ void scale_kernel(const bf16* __restrict__ REF, const float* __restri
   }
 }
 
-// a 3-D bf16 tensor map, dims innermost first, 128-byte swizzle, zeros
-// past the edges
-bool encode3(CUtensorMap* m, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
-             uint64_t s1, uint64_t s2, uint32_t b0, uint32_t b1) {
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr || (reinterpret_cast<uintptr_t>(base) & 15) != 0) return false;
-  const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {s1, s2};
-  const cuuint32_t box[3] = {b0, b1, 1};
-  const cuuint32_t es[3] = {1, 1, 1};
-  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-             box, es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE)
-         == CUDA_SUCCESS;
-}
-
 template <Mode MODE>
 cudaError_t launch(const Maps& maps, void* S, void* IDX, int B, int D, int L, int Lr,
                    cudaStream_t stream) {

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by conv.cu (K1), the Swin kernels
-// (K2, K8, K9, through swin_wgmma.cuh) and corr_unfold.cu (K5-K7): mbarriers, asynchronous copies with
+// (K2, K8, K9, through swin_wgmma.cuh), corr_banded.cu (K4) and
+// corr_unfold.cu (K5-K7): mbarriers, asynchronous copies with
 // mbarrier completion (bulk copies, TMA tile loads, multicast to a
 // cluster, and the driver entry point that encodes their tensor maps),
 // cluster rank / barrier / remote arrive, warpgroup MMAs (wgmma.mma_async,
@@ -51,6 +52,23 @@ inline EncodeTiled encode_tiled() {
       fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// a 3-D bf16 tensor map, dims innermost first (d0 contiguous, s1 / s2 the
+// byte strides of d1 / d2), box b0 x b1 x 1, 128-byte swizzle, zeros past
+// the edges; false if cuTensorMapEncodeTiled refuses it
+inline bool encode3(CUtensorMap* m, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
+                    uint64_t s1, uint64_t s2, uint32_t b0, uint32_t b1) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr || (reinterpret_cast<uintptr_t>(base) & 15) != 0) return false;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {s1, s2};
+  const cuuint32_t box[3] = {b0, b1, 1};
+  const cuuint32_t es[3] = {1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+             box, es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE)
+         == CUDA_SUCCESS;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

@@ -1,5 +1,5 @@
-// Warp-level tensor-core helpers shared by swin_wgmma.cuh (the window
-// attention of K2 and K8) and corr_banded.cu:
+// Warp-level tensor-core helpers of swin_wgmma.cuh, now used only by the
+// window attention of K2 and K8:
 // `ldmatrix` loads of 8x8 bf16 sub-matrices from shared memory and the
 // m16n8k16 bf16 `mma.sync` with f32 accumulation (sm_80 and later).
 #pragma once

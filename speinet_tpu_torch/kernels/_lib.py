@@ -52,7 +52,7 @@ SIGNATURES = {
                            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _F, _P],
     "speinet_roll2d": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "speinet_banded_corr": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "speinet_banded_corr": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "speinet_corr_unfold": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "speinet_corr_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "speinet_swin_attn": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

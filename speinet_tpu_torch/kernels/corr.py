@@ -2,9 +2,12 @@
 
 K4 `banded_corr_argmax` (`csrc/corr_banded.cu`) replaces
 `speinet_tpu/ops/pallas_corr.py::banded_corr_argmax` and works on the
-feature maps. The other three work on explicit [B, 9C, L] unfolds, so a
-batch may mix reference layouts sample by sample, and are three modes of
-one kernel, `csrc/corr_unfold.cu`:
+feature maps, which its wrapper lays out for the banded form
+(`banded_layout`), with each reference tile's scale and mask
+(`banded_aux`) for each of its reference tiles (`banded_plan`). The other
+three work on explicit [B, 9C, L] unfolds, so a batch may mix reference
+layouts sample by sample, and are three modes of one kernel,
+`csrc/corr_unfold.cu`:
     K5 correlation_argmax_lds  raw reference [B, D, Lr], scaled in the kernel
                                (`correlation_argmax_pallas_lds`)
     K6 correlation_argmax_ld   reference [B, D, Lr] scaled on the host
@@ -16,6 +19,8 @@ raises.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -66,6 +71,66 @@ def banded_corr_argmax_plain(lr_map: torch.Tensor, ref_map: torch.Tensor,
     return best, best_idx.to(torch.int32)
 
 
+# K4's reference tiles (csrc/corr_banded.cu, which tiles the query itself):
+# 256 positions 254 apart over the padded flat index space of width Wr + 1,
+# the last two columns being the next tile's diagonal halo
+BANDED_TK = 256
+BANDED_TKV = 254
+MAX_POSITIONS = 1 << 30   # padded positions per map (int32 TMA coordinates)
+
+
+def banded_plan(hr: int, wr: int) -> int:
+    """K4's reference tiles for an hr x wr reference of hr(wr + 1) flat
+    positions, its pad column included; the kernel checks the count."""
+    return -(-hr * (wr + 1) // BANDED_TKV)
+
+
+def banded_layout(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, W, C] map -> [B, Lp, C], the layout K4 reads: one zero row
+    above and below, one zero column on the right, flattened row-major
+    (pixel (r, c) at (r + 1)(W + 1) + c), and a second zero row below where
+    (H + 2)(W + 1) is odd, since the kernel reads the query's even and odd
+    positions through two tensor maps of 2-position pitch. The JAX
+    package's `_banded_windows` slabs are runs of this array."""
+    b, h, w, c = x.shape
+    odd = (h + 2) * (w + 1) % 2
+    return F.pad(x, (0, 0, 0, 1, 1, 1 + odd)).view(b, -1, c)
+
+
+@functools.lru_cache(maxsize=16)
+def _banded_columns(hr: int, wr: int, n_kt: int, device: torch.device):
+    """For column j of reference tile k, flat position q = 254k + j: its
+    row-major index in Hr x Wr (0 where it is none), 1 where q is a pixel
+    of the map and j < 254 (else 0), and the additive mask, 0 there and
+    -inf elsewhere. [n_kt, 256] each, built once per shape and device."""
+    wp = wr + 1
+    j = torch.arange(BANDED_TK, device=device)
+    q = torch.arange(n_kt, device=device)[:, None] * BANDED_TKV + j
+    valid = (j < BANDED_TKV) & (q < hr * wp) & (q % wp < wr)
+    src = torch.where(valid, q // wp * wr + q % wp, 0)
+    return src, valid.float(), torch.where(valid, 0.0, float("-inf"))
+
+
+def banded_aux(inv_ref: torch.Tensor, hr: int, wr: int, n_kt: int) -> torch.Tensor:
+    """[B, Hr*Wr] inverse norms -> [B, n_kt, 256, 2] f32: for column j of
+    reference tile k, flat position q = 254k + j, the pair (inv, 0) where q
+    is a pixel of the map and j < 254, else (0, -inf): K4's scale and
+    additive validity mask (the JAX package's `_banded_aux`, with -inf for
+    its -1e30)."""
+    src, keep, mask = _banded_columns(hr, wr, n_kt, inv_ref.device)
+    inv = inv_ref.float()[:, src] * keep
+    return torch.stack([inv, mask.expand_as(inv)], dim=-1)
+
+
+MAX_BATCH = 65535   # K4-K7 launch one grid row per sample
+
+
+def _check_batch(what: str, b: int) -> None:
+    if b > MAX_BATCH:
+        raise ValueError(f"{what} kernel takes at most {MAX_BATCH} samples, "
+                         f"got {b}")
+
+
 def banded_corr_argmax(lr_map: torch.Tensor, ref_map: torch.Tensor,
                        inv_ref: torch.Tensor):
     """lr_map [B, H, W, C], ref_map [B, Hr, Wr, C], inv_ref [B, Hr*Wr] f32
@@ -82,13 +147,19 @@ def banded_corr_argmax(lr_map: torch.Tensor, ref_map: torch.Tensor,
     if c % 16 or c > 256:
         raise ValueError(f"banded_corr_argmax kernel takes a multiple of 16 "
                          f"channels up to 256, got {c}")
+    _check_batch("banded_corr_argmax", b)
+    if max((h + 3) * (w + 1), (hr + 3) * (wr + 1)) >= MAX_POSITIONS:
+        raise ValueError(f"banded_corr_argmax kernel takes maps of (H + 3)(W + 1) "
+                         f"< 2^30 positions, got {h}x{w} and {hr}x{wr}")
+    n_kt = banded_plan(hr, wr)
+    fp, gp = banded_layout(lr_map), banded_layout(ref_map)
+    aux = banded_aux(inv_ref, hr, wr, n_kt)
     s = torch.empty((b, h * w), dtype=torch.float32, device=dev)
     idx = torch.empty((b, h * w), dtype=torch.int32, device=dev)
     lib = _lib.library()
-    _lib.check(lib.speinet_banded_corr(lr_map.data_ptr(), ref_map.data_ptr(),
-                                       inv_ref.data_ptr(), s.data_ptr(),
-                                       idx.data_ptr(), b, h, w, hr, wr, c,
-                                       _lib.stream_ptr(lr_map)),
+    _lib.check(lib.speinet_banded_corr(fp.data_ptr(), gp.data_ptr(), aux.data_ptr(),
+                                       s.data_ptr(), idx.data_ptr(), b, h, w, hr, wr,
+                                       c, n_kt, _lib.stream_ptr(lr_map)),
                "banded_corr_argmax")
     _lib.LAUNCHES["banded_corr_argmax"] += 1
     return s, idx
@@ -161,15 +232,6 @@ def _pad8(t: torch.Tensor) -> torch.Tensor:
     needed. The kernel's maps stop at the true length, so it never reads
     the padding."""
     return F.pad(t, (0, -t.shape[2] % 8)) if t.shape[2] % 8 else t
-
-
-MAX_BATCH = 65535   # K5-K7 launch one grid row per sample
-
-
-def _check_batch(what: str, b: int) -> None:
-    if b > MAX_BATCH:
-        raise ValueError(f"{what} kernel takes at most {MAX_BATCH} samples, "
-                         f"got {b}")
 
 
 def _corr_unfold(what: str, lr: torch.Tensor, ref: torch.Tensor,

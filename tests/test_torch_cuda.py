@@ -65,18 +65,82 @@ def test_roll2d_kernel(gen):
     assert torch.equal(kernels.roll2d(odd, 1, 2), kernels.roll2d_plain(odd, 1, 2))
 
 
+def _banded_score_at(f, g, inv):
+    """score_at(bi, p, k) = inv[k] * R[p, k] in f32, from the unfolds."""
+    import torch.nn.functional as F
+
+    lu = F.unfold(f.permute(0, 3, 1, 2).float(), 3, padding=1)
+    ru = F.unfold(g.permute(0, 3, 1, 2).float(), 3, padding=1)
+    return lambda bi, p, k: (lu[bi, :, p] * ru[bi, :, k]).sum(1) * inv[bi, k]
+
+
 @pytest.mark.parametrize("hw,ref_hw", [((12, 20), (12, 20)), ((9, 21), (21, 9))])
 def test_banded_corr_kernel(gen, hw, ref_hw):
     f = _bf16((2, *hw, 128), gen)
     g = _bf16((2, *ref_hw, 128), gen)
     inv = torch.rand((2, ref_hw[0] * ref_hw[1]), generator=gen, device="cuda") + 0.5
+    kernels.reset_launches()
+    s, idx = kernels.banded_corr_argmax(f, g, inv)
+    assert kernels.LAUNCHES["banded_corr_argmax"] == 1
+    s_p, idx_p = kernels.banded_corr_argmax_plain(f, g, inv)
+    _assert_corr_rule(s, idx, s_p, idx_p, _banded_score_at(f, g, inv))
+
+
+@pytest.mark.parametrize("b,hw,ref_hw,c", [
+    # the 'self' layout with H != W, three samples
+    (3, (18, 32), (32, 18), 128),
+    # maps of one pixel, one or two rows high or columns wide
+    (1, (1, 1), (1, 1), 64), (2, (2, 70), (1, 300), 64), (1, (40, 2), (2, 40), 16),
+    # exactly one query tile (112 flat positions) and one reference tile
+    # (254), then one position more on each side
+    (2, (1, 111), (1, 253), 64), (1, (1, 112), (1, 254), 16),
+    # several tiles with ragged ends; C = 16, 64 (one chunk) and 256 (four)
+    (1, (13, 17), (17, 13), 16), (2, (23, 40), (19, 45), 64),
+    (2, (11, 20), (9, 28), 256), (1, (5, 6), (5, 6), 256)])
+def test_banded_corr_kernel_shapes(gen, b, hw, ref_hw, c):
+    """Negated queries against a positive reference: every score is
+    negative, so the zero-filled pad column, the rows past the map and the
+    tiles' halo columns would win if the mask let them."""
+    f = -_bf16((b, *hw, c), gen).abs()
+    g = _bf16((b, *ref_hw, c), gen).abs()
+    inv = torch.rand((b, ref_hw[0] * ref_hw[1]), generator=gen, device="cuda") + 0.5
+    kernels.reset_launches()
+    s, idx = kernels.banded_corr_argmax(f, g, inv)
+    assert kernels.LAUNCHES["banded_corr_argmax"] == 1
+    s_p, idx_p = kernels.banded_corr_argmax_plain(f, g, inv)
+    assert (s < 0).all() and (idx >= 0).all() and (idx < inv.shape[1]).all()
+    _assert_corr_rule(s, idx, s_p, idx_p, _banded_score_at(f, g, inv))
+
+
+@pytest.mark.parametrize("c", [64, 128, 256])
+@pytest.mark.parametrize("routing", ["sharp", "self"])
+def test_banded_corr_kernel_exact(gen, routing, c):
+    """Integer maps in [-2, 2] repeating a 4 x 5 block, inv a power of two:
+    every sum is an integer below 2^24 times a power of two, exact in f32
+    in any order, so S equals the plain version's bit for bit; the repeated
+    patches tie often, and idx must equal the plain version's first maximum
+    in row-major order, across one, two and four 64-channel chunks."""
+    b, h, w = 2, 23, 37
+    block = torch.randint(-2, 3, (b, 4, 5, c), generator=gen, device="cuda")
+    f = block.repeat(1, 6, 8, 1)[:, :h, :w].to(torch.bfloat16).contiguous()
+    if routing == "sharp":
+        other = torch.randint(-2, 3, (b, 4, 5, c), generator=gen, device="cuda")
+        g = other.repeat(1, 5, 6, 1)[:, :19, :29].to(torch.bfloat16).contiguous()
+    else:
+        g = torch.flip(f.transpose(1, 2), dims=(1,)).contiguous()
+    n = g.shape[1] * g.shape[2]
+    inv = 2.0 ** -torch.randint(0, 2, (b, n), generator=gen, device="cuda").float()
     s, idx = kernels.banded_corr_argmax(f, g, inv)
     s_p, idx_p = kernels.banded_corr_argmax_plain(f, g, inv)
-    # the same bf16 products summed in f32 in another order
-    tol = 1e-5 * s_p.abs().max().item()
-    assert (s - s_p).abs().max().item() <= tol
-    agree = (idx == idx_p).float().mean().item()
-    assert agree > 0.99
+    assert torch.equal(s, s_p)
+    assert torch.equal(idx, idx_p)
+    # the case has ties to break: queries whose maximum is attained twice
+    import torch.nn.functional as F
+
+    lu = F.unfold(f[:1].permute(0, 3, 1, 2).float(), 3, padding=1)[0]
+    ru = F.unfold(g[:1].permute(0, 3, 1, 2).float(), 3, padding=1)[0]
+    scores = (ru.t() @ lu) * inv[0, :, None]        # [Lr, L], exact
+    assert ((scores == s_p[0]).sum(0) > 1).sum().item() > h * w // 4
 
 
 @pytest.mark.parametrize("h,w", [(180, 320), (95, 165)])
@@ -392,6 +456,17 @@ def test_banded_corr_limits(gen):
     f = _bf16((1, 5, 6, 272), gen)
     with pytest.raises(ValueError, match="up to 256"):
         kernels.banded_corr_argmax(f, f, inv)
+    from speinet_tpu_torch.kernels.corr import MAX_BATCH
+
+    for n, ok in ((MAX_BATCH, True), (MAX_BATCH + 1, False)):
+        f = _bf16((n, 1, 1, 16), gen)
+        inv = torch.ones((n, 1), device="cuda")
+        if ok:
+            s, idx = kernels.banded_corr_argmax(f, f, inv)
+            assert torch.equal(idx, torch.zeros_like(idx))
+        else:
+            with pytest.raises(ValueError, match="at most"):
+                kernels.banded_corr_argmax(f, f, inv)
 
 
 def test_row_gather_limits(gen):

@@ -15,6 +15,7 @@ import torch
 
 from speinet_tpu.models.search_transfer import correlation_argmax
 from speinet_tpu.ops.patch_ops import unfold
+from speinet_tpu_torch.kernels import corr as kc
 from speinet_tpu_torch.kernels import (SwinBlockWeights, banded_corr_argmax_plain,
                                        block_errors, block_errors_pass,
                                        conv2d_plain, correlation_argmax_lds_plain,
@@ -255,6 +256,120 @@ def test_corr_plain_matches_pallas_banded(interpret, shape):
     np.testing.assert_allclose(s.numpy(), np.asarray(s2), rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(idx.numpy(), np.asarray(i2))
     assert idx.dtype == torch.int32
+
+
+def _clipped_rows(x, start, n):
+    """Rows start .. start + n - 1 of x [B, L, C] along its second axis,
+    zero outside [0, L), as TMA's zero fill reads them."""
+    idx = torch.arange(start, start + n)
+    ok = ((idx >= 0) & (idx < x.shape[1])).to(x.dtype)
+    return x[:, idx.clamp(0, x.shape[1] - 1)] * ok[None, :, None]
+
+
+@pytest.mark.parametrize("h,w", [(3, 4), (5, 6), (4, 9)])
+def test_banded_layout_matches_pallas_windows(h, w):
+    """K4's padded flat map read at the slab origins the kernel uses
+    (tile start + dy(W + 1) - 1) gives the JAX package's `_banded_windows`
+    slabs."""
+    import speinet_tpu.ops.pallas_corr as pc
+
+    x = np.random.default_rng(20).standard_normal((2, h, w, 8)).astype(np.float32)
+    t = 8
+    win = np.asarray(pc._banded_windows(jnp.asarray(x), t, jnp.float32))
+    flat = kc.banded_layout(_t(x))
+    rows = h + 2 + (h + 2) * (w + 1) % 2      # a second zero row below if odd
+    assert flat.shape == (2, rows * (w + 1), 8) and flat.shape[1] % 2 == 0
+    for k in range(win.shape[1]):
+        for dy in range(3):
+            slab = _clipped_rows(flat, k * t + dy * (w + 1) - 1, t + 2)
+            np.testing.assert_array_equal(slab.numpy().transpose(0, 2, 1),
+                                          win[:, k, dy])
+
+
+@pytest.mark.parametrize("hr,wr", [(3, 4), (9, 5), (1, 1), (7, 300)])
+def test_banded_aux_matches_pallas_aux(hr, wr):
+    """K4's (inv, mask) rows against `_banded_aux`'s mask and the inverse
+    norms `_corr_impl_banded` scatters into the padded layout; the two
+    halo columns of every tile are masked too."""
+    import speinet_tpu.ops.pallas_corr as pc
+
+    inv = np.random.default_rng(21).random((2, hr * wr)).astype(np.float32) + 0.5
+    n_kt = kc.banded_plan(hr, wr)
+    aux = kc.banded_aux(_t(inv), hr, wr, n_kt).numpy()
+    assert aux.shape == (2, n_kt, kc.BANDED_TK, 2) and aux.dtype == np.float32
+    assert np.isneginf(aux[:, :, kc.BANDED_TKV:, 1]).all()
+    kp = n_kt * kc.BANDED_TKV
+    mask = pc._banded_aux(hr, wr, kp)[0, :, 0]
+    inv_p = np.pad(inv.reshape(2, hr, wr), ((0, 0), (0, 0), (0, 1))).reshape(2, -1)
+    inv_p = np.pad(inv_p, ((0, 0), (0, kp - inv_p.shape[1])))
+    got = aux[:, :, :kc.BANDED_TKV].reshape(2, kp, 2)
+    valid = mask == 0
+    np.testing.assert_array_equal(np.isneginf(got[..., 1]), np.broadcast_to(~valid, (2, kp)))
+    np.testing.assert_array_equal(got[:, valid, 0], inv_p[:, valid])
+    assert (got[:, valid, 1] == 0).all() and (got[:, ~valid, 0] == 0).all()
+
+
+@pytest.mark.parametrize("h,w,hr,wr", [(1, 1, 1, 1), (180, 320, 320, 180),
+                                       (2, 200, 3, 90), (12, 25, 11, 24)])
+def test_banded_plan_covers_the_maps(h, w, hr, wr):
+    """The fewest reference tiles that cover the reference's flat
+    positions, however large the query."""
+    n_kt = kc.banded_plan(hr, wr)
+    lk = hr * (wr + 1)
+    assert (n_kt - 1) * kc.BANDED_TKV < lk <= n_kt * kc.BANDED_TKV
+    assert isinstance(n_kt, int)
+
+
+def _banded_tiled(f, g, inv):
+    """K4's tiling and epilogue in plain torch: warps of 16 query rows 14
+    apart (as many as cover the query's flat positions), reference tiles of 256 positions 254 apart, each read from
+    `banded_layout` at tile start + dy(W + 1) - 1 with zero fill; Csum the
+    three dy products, R its three diagonals over the 14 x 254 outputs,
+    scaled and masked by `banded_aux`, the first maximum over ascending
+    flat positions; then the query's pad column cropped and idx mapped
+    back to row-major Hr x Wr."""
+    b, h, w, _ = f.shape
+    hr, wr = g.shape[1:3]
+    n_kt = kc.banded_plan(hr, wr)
+    fp, gp = kc.banded_layout(f), kc.banded_layout(g)
+    aux = kc.banded_aux(inv, hr, wr, n_kt)
+    n_w = -(-h * (w + 1) // 14)
+    csum = 0
+    for dy in range(3):
+        a = torch.stack([_clipped_rows(fp, 14 * i + dy * (w + 1) - 1, 16)
+                         for i in range(n_w)], 1)              # [B, n_w, 16, C]
+        r = torch.stack([_clipped_rows(gp, kc.BANDED_TKV * k + dy * (wr + 1) - 1,
+                                       kc.BANDED_TK) for k in range(n_kt)], 1)
+        csum = csum + torch.einsum("bwic,bkjc->bwkij", a, r)   # [B, n_w, n_kt, 16, 256]
+    tv = kc.BANDED_TKV
+    rr = csum[..., :14, :tv] + csum[..., 1:15, 1:tv + 1] + csum[..., 2:16, 2:tv + 2]
+    v = rr * aux[:, None, :, None, :tv, 0] + aux[:, None, :, None, :tv, 1]
+    v = v.permute(0, 1, 3, 2, 4).reshape(b, n_w * 14, n_kt * tv)
+    s, q = v.max(dim=2)                       # the first maximum
+    keep = torch.arange(h * (w + 1)) % (w + 1) < w
+    s, q = s[:, :h * (w + 1)][:, keep], q[:, :h * (w + 1)][:, keep]
+    return s, (q // (wr + 1) * wr + q % (wr + 1)).to(torch.int32)
+
+
+@pytest.mark.parametrize("shape", [((6, 7), (6, 7)), ((5, 9), (9, 5)),
+                                   ((12, 25), (11, 24)), ((1, 2), (2, 1))])
+def test_banded_tiling_matches_pallas_banded(interpret, shape):
+    """The kernel's tile plan, layout, (inv, mask) rows, crop and index remap
+    (`_banded_tiled`) against `_corr_impl_banded` in interpret mode and the
+    plain version: several query tiles and reference tiles at 12 x 25
+    against 11 x 24, maps of one or two pixels."""
+    import speinet_tpu.ops.pallas_corr as pc
+
+    (h, w), (hr, wr) = shape
+    f, g, inv = _corr_inputs(h, w, hr, wr, seed=22)
+    s, idx = _banded_tiled(_t(f), _t(g), _t(inv))
+    s2, i2 = pc._corr_impl_banded(jnp.asarray(f), jnp.asarray(g), jnp.asarray(inv),
+                                  tl=16, tk=16)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s2), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(i2))
+    s3, i3 = banded_corr_argmax_plain(_t(f), _t(g), _t(inv))
+    np.testing.assert_allclose(s.numpy(), s3.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(idx.numpy(), i3.numpy())
 
 
 @pytest.mark.parametrize("routing", ["sharp", "self"])
