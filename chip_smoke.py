@@ -39,7 +39,18 @@ toolkit. In order it:
    forward, then the restores and the mixed forward of the `split`
    configuration; the direct forward of a `--n_feat 64` model (Swin depth
    cut to 2 blocks); and the sharpness detector's labels of the video;
-5. prints the `kernels` JSON line, the card's name and power limit, and as
+5. trains: `Trainer.train()` for one epoch (4 steps) at the full width of
+   the template and its batch of 20 at patch 200, in bf16, on a synthetic
+   in-memory tree (no image files, no plots), then `Trainer.test()` on two
+   windows; the launch counts of the epoch, reset just before it, must show
+   K3 forward and backward, K5 and K10, and none of the kernels without a
+   backward (K1, K2, K4, K6-K9); losses finite, weights and BatchNorm
+   running statistics moved; three more steps are timed (ms per step,
+   frames/s, peak memory); then the card's bf16 train step against the
+   CPU's f32 one at 80x80 (Swin depth 2), which must also reject a planted
+   fault (K3's backward with the shift not negated), and K3 / K5 / K10 at
+   the train step's shapes against their plain versions;
+6. prints the `kernels` JSON line, the card's name and power limit, and as
    the last line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero; without CUDA, or outside a checkout,
@@ -51,6 +62,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 PEAK_BF16 = 989e12       # dense bf16 tensor-core FLOP/s, H100 SXM data sheet
@@ -797,6 +809,330 @@ def check_detector(frames):
                 decided_beyond_tolerance=int(sure.sum()))
 
 
+# --- training -----------------------------------------------------------------
+
+def check_train_shapes(rng_seed: int):
+    """The three kernels of the train step at its shapes (the template's
+    batch 20 at patch 200: lv3 50x50): K3 on the Swin stream [40, 50, 50, 256]
+    bf16, forward and its backward launch (shift negated); K5 on a mixed
+    [20, 1152, 2500] batch; K10 on the gather-fold's rows [20, 52*52, 896]
+    with [20, 9*2500] indices. Each against its plain version as in the
+    inference checks; beside each, the time of its plain PyTorch backward
+    where it has one (K5, K10)."""
+    import torch
+    from speinet_tpu_torch.kernels import (correlation_argmax_lds,
+                                          correlation_argmax_lds_plain, roll2d,
+                                          roll2d_plain, row_gather, row_gather_plain)
+    from speinet_tpu_torch.kernels.corr import CorrLds, scaled_reference
+    from speinet_tpu_torch.kernels.gather import row_scatter_add
+    from speinet_tpu_torch.models.search_transfer import (patch_inv_norms,
+                                                          unfold_reference)
+    from speinet_tpu_torch.ops.patch_ops import _shift9_flat
+
+    g = torch.Generator(device="cuda").manual_seed(rng_seed)
+    rows = {}
+    x = torch.randn((40, 50, 50, 256), generator=g, device="cuda").to(torch.bfloat16)
+    roll_rows = []
+    for what, sh in (("forward", 2), ("backward", -2)):
+        out = roll2d(x, sh, sh)
+        if not torch.equal(out, roll2d_plain(x, sh % 50, sh % 50)):
+            raise AssertionError(f"roll2d train shape {what}: not an exact copy")
+        bms, by = bound(0.0, 2 * nbytes(x))
+        roll_rows.append(dict(shape=f"[40,50,50,256] by {sh} ({what})", max_abs_err=0.0,
+                              ms=time_ms(lambda: roll2d(x, sh, sh), iters=20),
+                              plain_ms=time_ms(lambda: roll2d_plain(x, sh % 50, sh % 50),
+                                               iters=20),
+                              library_ms=time_ms(lambda: torch.roll(
+                                  x, (-sh, -sh), dims=(1, 2)), iters=20),
+                              bound_ms=bms, bound_by=by))
+    rows["roll2d"] = roll_rows
+
+    f = torch.rand((20, 50, 50, 128), generator=g, device="cuda").to(torch.bfloat16)
+    sharp = torch.rand((20, 50, 50, 128), generator=g, device="cuda").to(torch.bfloat16)
+    hs = torch.arange(20, device="cuda") % 2 == 0
+    lr, ref, inv = (t.contiguous() for t in unfold_reference(f, sharp, "mixed", hs,
+                                                             patch_inv_norms(f)))
+    s, idx = correlation_argmax_lds(lr, ref, inv)
+    s_p, idx_p = correlation_argmax_lds_plain(lr, ref, inv)
+    sc = scaled_reference(ref, inv)
+    err, tol, nd = _corr_rule("corr_unfold train shape", s, idx, s_p, idx_p,
+                              lambda bi, p, k: (lr[bi, :, p].float()
+                                                * sc[bi, :, k].float()).sum(1))
+    b, d, l = lr.shape
+    flops = 2.0 * b * l * ref.shape[2] * d
+    bms, by = bound(flops, nbytes(lr, ref, inv, s, idx))
+    leaves = [t.detach().clone().requires_grad_(True) for t in (lr, ref, inv)]
+    gs = torch.randn_like(s)
+
+    def fwd_bwd():
+        out, _ = CorrLds.apply(*leaves)
+        out.backward(gs)
+
+    fwd_ms = time_ms(lambda: correlation_argmax_lds(lr, ref, inv), iters=3, warmup=1)
+    rows["correlation_argmax_lds"] = [dict(
+        shape=f"mixed B=20 D=1152 L=Lr={l} (50x50x128)", max_abs_err=err, tol=tol,
+        idx_differs=nd, ms=fwd_ms,
+        plain_ms=time_ms(lambda: correlation_argmax_lds_plain(lr, ref, inv),
+                         iters=1, warmup=1),
+        library_ms=None, bound_ms=bms, bound_by=by, flops=flops,
+        backward_ms=time_ms(fwd_bwd, iters=3, warmup=1) - fwd_ms)]
+
+    r = 128 + 4 * 64 + 16 * 32
+    tiles = torch.randn((20, 52 * 52, r), generator=g, device="cuda").to(torch.bfloat16)
+    index = torch.randint(0, 2500, (20, 2500), generator=g, device="cuda")
+    flat = _shift9_flat(index, 50, 50).contiguous()
+    out = row_gather(tiles, flat)
+    if not torch.equal(out, row_gather_plain(tiles, flat)):
+        raise AssertionError("row_gather train shape: not an exact copy")
+    go = torch.randn_like(out)
+    bms, by = bound(0.0, nbytes(tiles, flat, out))
+    bidx = torch.arange(20, device="cuda")[:, None]
+    rows["row_gather"] = [dict(
+        shape=f"rows [20,2704,{r}] idx [20,22500] (50x50 lv3)", max_abs_err=0.0,
+        ms=time_ms(lambda: row_gather(tiles, flat), iters=10),
+        plain_ms=time_ms(lambda: row_gather_plain(tiles, flat), iters=10),
+        library_ms=time_ms(lambda: tiles[bidx, flat], iters=10), bound_ms=bms,
+        bound_by=by, backward_ms=time_ms(lambda: row_scatter_add(go, flat, 2704),
+                                         iters=5))]
+    return rows
+
+
+def memory_tree(root, videos, frames_per_video: int, h: int, w: int, seed: int):
+    """A dataset tree under `root` (gt/, blur/, label/) whose frame files are
+    empty: the frames live in memory, keyed by path, for `MemoryVideos`.
+    Each ground-truth frame is a synthetic pattern; its blurred input the
+    mean of 7 horizontal shifts; every 12th frame is labelled sharp, so
+    windows far from one have their pre-sharp frame zeroed (routed 'self')."""
+    import os
+
+    import numpy as np
+
+    store = {}
+    os.makedirs(os.path.join(root, "label"), exist_ok=True)
+    for v in range(videos):
+        name = f"video{v:02d}"
+        gts = synthetic_video(frames_per_video, h, w, seed=seed + v)
+        labels = np.zeros(frames_per_video, np.int64)
+        labels[::12] = 1
+        np.save(os.path.join(root, "label", name + ".npy"), labels)
+        for kind in ("gt", "blur"):
+            os.makedirs(os.path.join(root, kind, name))
+        for i, gt in enumerate(gts):
+            blur = np.mean([np.roll(gt, k, axis=1) for k in range(-3, 4)], axis=0)
+            for kind, img in (("gt", gt), ("blur", blur.astype(np.uint8))):
+                path = os.path.join(root, kind, name, f"{i:08d}.png")
+                open(path, "wb").close()
+                store[path] = img
+    return store
+
+
+def memory_data(cfg, train_root: str, test_root: str, store: dict):
+    """Train and test loaders (`Data`'s pair) over frames held in memory."""
+    from types import SimpleNamespace
+
+    from speinet_tpu_torch.data.loader import BatchIterator
+    from speinet_tpu_torch.data.videodata import VideoDataset
+
+    class MemoryVideos(VideoDataset):
+        def _imread(self, path):
+            return store[path]
+
+    train = MemoryVideos(cfg.replace(dir_data=train_root), train=True)
+    test = MemoryVideos(cfg.replace(dir_data_test=test_root), train=False)
+    return SimpleNamespace(
+        loader_train=BatchIterator(train, cfg.batch_size, shuffle=True, seed=cfg.seed,
+                                   n_threads=cfg.n_threads, drop_last=True),
+        loader_test=BatchIterator(test, 1, shuffle=False, seed=cfg.seed,
+                                  n_threads=cfg.n_threads))
+
+
+# kernels the train step must launch, and those it must not (training runs
+# its convs and Swin blocks as PyTorch ops and routes 'mixed' through K5)
+TRAIN_LAUNCHES = ["roll2d", "correlation_argmax_lds", "row_gather"]
+TRAIN_SHUNS = ["conv2d", "swin_block", "banded_corr_argmax", "correlation_argmax_ld",
+               "correlation_argmax", "window_cross_attention", "ln_mlp"]
+
+
+def run_training(cfg, workdir: str):
+    """The training main path: `Trainer.train()` for one epoch at full width
+    on a synthetic in-memory tree (2 videos of 24 240x320 frames: 4 steps of
+    the template's batch 20 at patch 200), then `Trainer.test()` on two
+    windows of a 6-frame video. Launch counts are reset just before train()
+    and read just after; then three more steps on one batch are timed, each
+    ended by a device sync. Returns (the run's record, launch counts,
+    backward launch counts)."""
+    import os
+
+    import numpy as np
+    import torch
+    from speinet_tpu_torch.data.loader import to_device
+    from speinet_tpu_torch.kernels import BACKWARD_LAUNCHES, LAUNCHES, reset_launches
+    from speinet_tpu_torch.models.speinet import SPEINet, init_weights
+    from speinet_tpu_torch.training.train_state import train_step
+    from speinet_tpu_torch.training.trainer import Trainer
+    from speinet_tpu_torch.utils.logging import Logger
+
+    train_root = os.path.join(workdir, "train")
+    test_root = os.path.join(workdir, "val")
+    store = memory_tree(train_root, 2, 24, 240, 320, seed=3)
+    store.update(memory_tree(test_root, 1, 6, 240, 320, seed=9))
+    cfg = cfg.replace(experiment_dir=workdir + "/", save="train", epochs=1,
+                      print_every=1, save_images=False)
+
+    class Unplotted(Logger):
+        def plot(self, values, label, filename):    # matplotlib is not needed
+            pass
+
+    logger = Unplotted(cfg)
+    model = init_weights(SPEINet.from_config(cfg), cfg.seed)
+    trainer = Trainer(cfg, memory_data(cfg, train_root, test_root, store), model,
+                      logger, device="cuda")
+    params0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts, backward = dict(LAUNCHES), dict(BACKWARD_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    steps = trainer.step
+    losses = trainer.ckp.loss_log
+    after = model.state_dict()
+    moved = {kind: sum(not torch.equal(after[k], params0[k]) for k in after
+                       if k.endswith(suffix))
+             for kind, suffix in (("weights", "weight"), ("running_means", "running_mean"))}
+    total = {kind: sum(k.endswith(suffix) for k in after)
+             for kind, suffix in (("weights", "weight"), ("running_means", "running_mean"))}
+    t1 = time.time()
+    trainer.test()
+    test_s = time.time() - t1
+    psnr = trainer.ckp.psnr_log[-1]
+    logger.done()
+
+    batch = next(iter(trainer.data.loader_train))
+    inp = to_device(batch[0], trainer.device)
+    gt = to_device(batch[1][:, cfg.n_sequence // 2], trainer.device)
+    step_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.time()
+        train_step(model, trainer.optimizer, trainer.loss, inp, gt, trainer.generator)
+        torch.cuda.synchronize()
+        step_ms.append((time.time() - t1) * 1e3)
+    ms = sum(step_ms) / len(step_ms)
+    if steps < 3 or not (np.isfinite(losses).all() and np.isfinite(psnr)):
+        raise AssertionError(f"training: {steps} steps, losses {losses}, psnr {psnr}")
+    # search23 is defined but unused (parity), and a gate's ReLU may leave a
+    # weight without gradient at random init: nine in ten must move
+    if moved["weights"] < 0.9 * total["weights"] or moved["running_means"] != total[
+            "running_means"]:
+        raise AssertionError(f"training moved {moved} of {total}")
+    record = dict(batch=cfg.batch_size, patch=cfg.patch_size, steps=steps,
+                  epoch_wall_s=wall, epoch_loss=losses[-1],
+                  test_windows=len(trainer.data.loader_test),
+                  test_s=test_s, test_psnr=psnr, moved=moved, of=total,
+                  ms_per_step=ms, step_ms=step_ms,
+                  frames_per_s=cfg.batch_size / (ms / 1e3),
+                  peak_memory_gib=peak / 2 ** 30)
+    return record, counts, backward
+
+
+GRAD_GROUPS = (("encoder", ("recons_net.inBlock.", "recons_net.encoder_")),
+               ("swin", ("swin.",)),
+               ("transfer", ("fusion.", "SelfTransfer.")),
+               ("decoder", ("recons_net.decoder_", "recons_net.outBlock.",
+                            "conv_lv", "search")))
+
+
+def wrong_roll():
+    """A planted fault: the K3 roll under autograd with a backward that
+    launches K3 with the shifts not negated."""
+    import torch
+    from speinet_tpu_torch.kernels import roll2d
+
+    class WrongRoll(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, sh, sw):
+            ctx.shifts = (sh, sw)
+            return roll2d(x, sh, sw)
+
+        @staticmethod
+        def backward(ctx, g):
+            sh, sw = ctx.shifts
+            return roll2d(g.contiguous(), sh, sw), None, None
+
+    def roll(x, sh, sw):
+        sh %= x.shape[1]
+        sw %= x.shape[2]
+        return x if sh == 0 and sw == 0 else WrongRoll.apply(x, sh, sw)
+
+    return roll
+
+
+def check_train_against_cpu(cfg):
+    """The card's bf16 train step against the port's f32 CPU step, same
+    weights and batch (the mixed 80x80 pair; the Swin depth cut to 2 blocks,
+    widths full): the loss within 2%, the gradient's cosine >= 0.99 for each
+    parameter group, and >= 0.9 for each parameter tensor of 64 elements or
+    more (cosines in float64). DropPath and HEM draw from one CPU generator
+    seeded alike on both sides. The check must reject one planted fault: a
+    step whose Swin rolls go through a K3 function with an un-negated
+    backward shift. That fault leaves every group's cosine above 0.9999 (a
+    few Swin tensors' gradients dwarf the rest) while the attention tensors
+    of the shifted block fall to 0.04-0.97, which the per-tensor rule sees;
+    bf16 against f32 keeps each such tensor near 0.99 (a CPU rehearsal in
+    bf16: 0.9898 at the lowest)."""
+    import torch
+    import speinet_tpu_torch.models.swinir as swinir
+    from speinet_tpu_torch.models.speinet import SPEINet, init_weights
+    from speinet_tpu_torch.training.loss import LossComputer
+    from speinet_tpu_torch.training.train_state import make_optimizer, train_step
+
+    small = cfg.replace(depths=[2], num_heads=[8])
+    gpu = init_weights(SPEINet.from_config(small), 0).to("cuda")
+    state = {k: v.detach().clone() for k, v in gpu.state_dict().items()}
+    cpu = SPEINet.from_config(small.replace(compute_dtype="float32"))
+    x = mixed_batch(small_frames())
+    gt = x[:, 1].clone()
+
+    def step(model, dev):
+        model.load_state_dict({k: v.to(dev) for k, v in state.items()})
+        total, _ = train_step(model, make_optimizer(small, model),
+                              LossComputer(small.loss), x.to(dev), gt.to(dev),
+                              torch.Generator().manual_seed(5))
+        return total.item(), {n: p.grad.double().flatten().cpu()
+                              for n, p in model.named_parameters() if p.grad is not None}
+
+    def cos(a, b):
+        return torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+
+    def compare(card, ref):
+        loss_rel = abs(card[0] - ref[0]) / abs(ref[0])
+        groups = {g: cos(*(torch.cat([d[n] for n in ref[1] if n.startswith(pre)])
+                           for d in (card[1], ref[1])))
+                  for g, pre in GRAD_GROUPS}
+        tensors = sorted((cos(card[1][n], ref[1][n]), n) for n in ref[1]
+                         if ref[1][n].numel() >= 64)
+        return dict(loss_card=card[0], loss_cpu=ref[0], loss_rel=loss_rel,
+                    cosine=groups, lowest_tensors=tensors[:3],
+                    ok=(loss_rel <= 0.02 and min(groups.values()) >= 0.99
+                        and tensors[0][0] >= 0.9))
+
+    ref = step(cpu, "cpu")
+    good = compare(step(gpu, "cuda"), ref)
+    if not good["ok"]:
+        raise AssertionError(f"train step card vs cpu: {good}")
+    swinir.roll2d, real = wrong_roll(), swinir.roll2d
+    try:
+        planted = compare(step(gpu, "cuda"), ref)
+    finally:
+        swinir.roll2d = real
+    if planted["ok"]:
+        raise AssertionError(f"train step check accepts the planted roll fault: {planted}")
+    return dict(step=good, planted_fault_rejected=planted)
+
 def main() -> int:
     import torch
 
@@ -866,6 +1202,7 @@ def main() -> int:
                       ["banded_corr_argmax", "correlation_argmax_lds"]),
     }
     launches = {k: 0 for k in checks}
+    by_path = {}
     outputs, vs_cached, engines = {}, {}, {}
     for path, (cached, switches, needs, shuns) in paths.items():
         t1 = time.time()
@@ -889,6 +1226,7 @@ def main() -> int:
         if stray:
             raise AssertionError(f"kernels of another path launched on the {path} "
                                  f"path: {stray}")
+        by_path[path] = counts
         for k in launches:
             launches[k] += counts[k]
     # the paths differ from the cached engine only in where bf16 rounds
@@ -905,6 +1243,44 @@ def main() -> int:
         check_against_cpu(cfg, engines["split"], full=False, **split)), flush=True)
     print("card vs cpu (n_feat 64): " + json.dumps(check_wide(cfg)), flush=True)
     print("detector: " + json.dumps(check_detector(frames)), flush=True)
+
+    # the training main path: its launch counts reset just before the epoch
+    t1 = time.time()
+    with tempfile.TemporaryDirectory() as work:
+        record, counts, backward = run_training(cfg, work)
+    print("main path (train): " + json.dumps(dict(record, launches=counts,
+                                                  backward_launches=backward)),
+          flush=True)
+    print(f"main path (train): run in {time.time() - t1:.1f} s", flush=True)
+    missing = [k for k in TRAIN_LAUNCHES if counts[k] <= 0]
+    if backward["roll2d"] <= 0:
+        missing.append("roll2d (backward)")
+    if missing:
+        raise AssertionError(f"kernels not launched in the train steps: {missing}")
+    stray = [k for k in TRAIN_SHUNS if counts[k] > 0]
+    if stray:
+        raise AssertionError(f"kernels without a backward launched in the train "
+                             f"steps: {stray}")
+    by_path["train"] = counts
+    for k in launches:
+        launches[k] += counts[k]
+    t1 = time.time()
+    print("train step card vs cpu: " + json.dumps(check_train_against_cpu(cfg)),
+          flush=True)
+    print(f"train step card vs cpu: checked in {time.time() - t1:.1f} s", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    print(f"training (batch {record['batch']}, patch {record['patch']}, bf16): "
+          f"{record['ms_per_step']:.1f} ms per step, {record['frames_per_s']:.2f} "
+          f"frames/s, peak memory {record['peak_memory_gib']:.2f} GiB; {smi}",
+          flush=True)
+    t1 = time.time()
+    train_shapes = check_train_shapes(0)
+    for name, rows in train_shapes.items():
+        for row in rows:
+            print(f"{name} (train shape) {json.dumps(row)}", flush=True)
+    print(f"train shapes: checked in {time.time() - t1:.1f} s", flush=True)
 
     meta = {
         "conv2d": ("speinet_tpu_torch/csrc/conv.cu",
@@ -933,9 +1309,11 @@ def main() -> int:
         rows = checks[name]
         lib = [r["library_ms"] for r in rows]
         ops_ms = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+        train_rows = train_shapes.get(name, [])
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name],
+            launches_by_path={p: c[name] for p, c in by_path.items()},
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
             bound_ms=sum(r["bound_ms"] for r in rows),
@@ -943,12 +1321,12 @@ def main() -> int:
             else "bytes",
             library_ms=None if any(v is None for v in lib) else sum(lib),
             tflops=sum(r.get("flops", 0.0) for r in rows)
-            / sum(r["ms"] for r in rows) / 1e9))
+            / sum(r["ms"] for r in rows) / 1e9,
+            train_ms=sum(r["ms"] for r in train_rows) if train_rows else None,
+            train_bound_ms=sum(r["bound_ms"] for r in train_rows) if train_rows
+            else None))
     print(json.dumps({"kernels": kernels}), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

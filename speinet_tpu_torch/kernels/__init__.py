@@ -3,7 +3,11 @@
 Each wrapper dispatches on its tensor's device alone: a CPU tensor takes
 the plain PyTorch version kept beside it, a CUDA tensor launches the CUDA
 kernel built from `speinet_tpu_torch/csrc/` (or raises). `LAUNCHES` counts
-the kernel launches of each wrapper. TPU kernels under speinet_tpu/ops/:
+the kernel launches of each wrapper, `BACKWARD_LAUNCHES` those made in a
+backward pass. K3, K5-K7 and K10 run under autograd (their backward: K3
+itself, and plain PyTorch for the others, as XLA code in the JAX package);
+K1, K2, K4, K8 and K9 have no backward and refuse inputs that need one.
+TPU kernels under speinet_tpu/ops/:
 
     K1  conv2d                  csrc/conv.cu         pallas_conv.py::conv2d_mxu
     K2  swin_block              csrc/swin_block.cu   pallas_swin.py::fused_swin_block
@@ -19,7 +23,8 @@ the kernel launches of each wrapper. TPU kernels under speinet_tpu/ops/:
     K10 row_gather              csrc/row_gather.cu   pallas_gather.py::row_gather
 """
 
-from speinet_tpu_torch.kernels._lib import LAUNCHES, reset_launches
+from speinet_tpu_torch.kernels._lib import (BACKWARD_LAUNCHES, LAUNCHES,
+                                            reset_launches)
 from speinet_tpu_torch.kernels.conv import conv2d, conv2d_plain
 from speinet_tpu_torch.kernels.corr import (banded_corr_argmax,
                                             banded_corr_argmax_plain,
@@ -38,7 +43,7 @@ from speinet_tpu_torch.kernels.swin import (SwinBlockWeights, block_errors,
                                             window_cross_attention,
                                             window_cross_attention_plain)
 
-__all__ = ["LAUNCHES", "reset_launches", "conv2d", "conv2d_plain",
+__all__ = ["LAUNCHES", "BACKWARD_LAUNCHES", "reset_launches", "conv2d", "conv2d_plain",
            "banded_corr_argmax", "banded_corr_argmax_plain",
            "correlation_argmax_lds", "correlation_argmax_lds_plain",
            "correlation_argmax_ld", "correlation_argmax_ld_plain",

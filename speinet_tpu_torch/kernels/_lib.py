@@ -10,7 +10,8 @@ flags, so an edited source is rebuilt and an unchanged one is reused.
 
 Every exported C function launches on the stream it is given and returns
 `cudaGetLastError()`; `check` turns a non-zero code into an exception.
-`LAUNCHES` counts, per kernel, the launches its wrapper made.
+`LAUNCHES` counts, per kernel, the launches its wrapper made;
+`BACKWARD_LAUNCHES` counts those of them made in a backward pass.
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ LAUNCHES = {"conv2d": 0, "swin_block": 0, "roll2d": 0, "banded_corr_argmax": 0,
             "correlation_argmax_lds": 0, "correlation_argmax_ld": 0,
             "correlation_argmax": 0, "window_cross_attention": 0, "ln_mlp": 0,
             "row_gather": 0}
+# of those, the launches made by a backward pass (K3's VJP is K3 itself)
+BACKWARD_LAUNCHES = {"roll2d": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -65,8 +68,19 @@ _lib = None
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, BACKWARD_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where autograd would need a backward this kernel does not have:
+    its launch returns tensors without a gradient function, so a gradient
+    would stop there without a word."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what} has no backward: call it under "
+                           f"torch.no_grad() or on tensors that need no gradient")
 
 
 def _nvcc() -> str:

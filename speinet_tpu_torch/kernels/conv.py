@@ -3,7 +3,9 @@
 Replaces `speinet_tpu/ops/pallas_conv.py::conv2d_mxu`, and takes stride 2
 as well, so the encoder's stride-2 convs need no space-to-depth rewrite.
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-(bf16 operands, f32 accumulation) or raises.
+(bf16 operands, f32 accumulation) or raises. It has no backward (training
+runs its convs through `F.conv2d`, as the JAX package runs them in XLA),
+so it refuses inputs that need a gradient.
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     """SAME (pad k//2) conv: x [B, H, W, C], w [k, k, C, Co] (HWIO),
     bias [Co] float32 -> [B, ceil(H/stride), ceil(W/stride), Co] in x.dtype."""
     _check_args(x, w, bias, stride)
+    _lib.refuse_grad("conv2d", x, w, bias)
     if _lib.dispatch_device(x, "conv2d") == "cpu":
         return conv2d_plain(x, w, bias, relu, stride)
     dev = x.device

@@ -15,7 +15,13 @@ layouts sample by sample, and are three modes of one kernel,
     K7 correlation_argmax      L2-normalized operands, reference [B, Lr, D]
                                (`correlation_argmax_pallas`)
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.
+raises. K5-K7 run under autograd functions whose backward ports the JAX
+package's custom VJPs (`_corr_lds_bwd`, `_corr_ld_bwd`, `_corr_bwd`,
+pallas_corr.py:310-392), XLA code there and plain PyTorch here on either
+device: torch.max's subgradient through the winning reference column, the
+reference cotangents scatter-added in float32 and cast to the operand dtype
+at the end. `idx` carries no gradient. K4 has no backward (no training path
+reaches it) and refuses inputs that need one.
 """
 
 from __future__ import annotations
@@ -136,6 +142,7 @@ def banded_corr_argmax(lr_map: torch.Tensor, ref_map: torch.Tensor,
     """lr_map [B, H, W, C], ref_map [B, Hr, Wr, C], inv_ref [B, Hr*Wr] f32
     -> (S [B, H*W] f32, idx [B, H*W] int32 row-major over Hr x Wr)."""
     _check_args(lr_map, ref_map, inv_ref)
+    _lib.refuse_grad("banded_corr_argmax", lr_map, ref_map, inv_ref)
     if _lib.dispatch_device(lr_map, "banded_corr_argmax") == "cpu":
         return banded_corr_argmax_plain(lr_map, ref_map, inv_ref)
     dev = lr_map.device
@@ -262,32 +269,132 @@ def _corr_unfold(what: str, lr: torch.Tensor, ref: torch.Tensor,
     return s, idx
 
 
+def _winning_columns(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """t [B, D, Lr] at the columns idx [B, L] -> [B, D, L]."""
+    return torch.gather(t, 2, idx[:, None, :].expand(-1, t.shape[1], -1))
+
+
+def _scatter_columns(contrib: torch.Tensor, idx: torch.Tensor,
+                     lr_len: int) -> torch.Tensor:
+    """zeros [B, D, Lr] f32 with contrib [B, D, L] added at the columns idx."""
+    b, d, _ = contrib.shape
+    out = torch.zeros((b, d, lr_len), dtype=torch.float32, device=contrib.device)
+    return out.scatter_add_(2, idx[:, None, :].expand(-1, d, -1), contrib)
+
+
+class CorrLds(torch.autograd.Function):
+    """K5: S_i = inv_k* <ref_k*, lr_i> (k* the argmax); the scale is part of
+    the row, so the product rule gives inv's cotangent (`_corr_lds_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, lr, ref, inv_ref):
+        if lr.device.type == "cpu":
+            s, idx = correlation_argmax_lds_plain(lr, ref, inv_ref)
+        else:
+            s, idx = _corr_unfold("correlation_argmax_lds", lr, ref, inv_ref)
+        ctx.save_for_backward(lr, ref, inv_ref, s, idx)
+        ctx.mark_non_differentiable(idx)
+        return s, idx
+
+    @staticmethod
+    def backward(ctx, gs, _):
+        lr, ref, inv_ref, s, idx = ctx.saved_tensors
+        idx = idx.long()
+        gs = gs.float()
+        inv_sel = torch.gather(inv_ref.float(), 1, idx)
+        w = (inv_sel * gs)[:, None, :]
+        d_lr = d_ref = d_inv = None
+        if ctx.needs_input_grad[0]:
+            d_lr = (_winning_columns(ref, idx).float() * w).to(lr.dtype)
+        if ctx.needs_input_grad[1]:
+            d_ref = _scatter_columns(lr.float() * w, idx, ref.shape[2]).to(ref.dtype)
+        if ctx.needs_input_grad[2]:
+            # <ref_k*, lr_i> = S_i / inv_k*; inv > 0 always (1 / max(norm, eps))
+            d_inv = torch.zeros(inv_ref.shape, dtype=torch.float32,
+                                device=inv_ref.device)
+            d_inv.scatter_add_(1, idx, s / torch.clamp(inv_sel, min=1e-30) * gs)
+            d_inv = d_inv.to(inv_ref.dtype)
+        return d_lr, d_ref, d_inv
+
+
+class CorrLd(torch.autograd.Function):
+    """K6: S_i = <ref_k*, lr_i> on a reference scaled outside (`_corr_ld_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, lr, ref):
+        if lr.device.type == "cpu":
+            s, idx = correlation_argmax_ld_plain(lr, ref)
+        else:
+            s, idx = _corr_unfold("correlation_argmax_ld", lr, ref, None)
+        ctx.save_for_backward(lr, ref, idx)
+        ctx.mark_non_differentiable(idx)
+        return s, idx
+
+    @staticmethod
+    def backward(ctx, gs, _):
+        lr, ref, idx = ctx.saved_tensors
+        idx = idx.long()
+        w = gs.float()[:, None, :]
+        d_lr = d_ref = None
+        if ctx.needs_input_grad[0]:
+            d_lr = (_winning_columns(ref, idx).float() * w).to(lr.dtype)
+        if ctx.needs_input_grad[1]:
+            d_ref = _scatter_columns(lr.float() * w, idx, ref.shape[2]).to(ref.dtype)
+        return d_lr, d_ref
+
+
+class CorrRows(torch.autograd.Function):
+    """K7: S_i = <ref_n[k*], lr_n[:, i]>, the reference as rows (`_corr_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, lr_n, ref_n):
+        if lr_n.device.type == "cpu":
+            s, idx = correlation_argmax_plain(lr_n, ref_n)
+        else:
+            s, idx = _corr_rows(lr_n, ref_n)
+        ctx.save_for_backward(lr_n, ref_n, idx)
+        ctx.mark_non_differentiable(idx)
+        return s, idx
+
+    @staticmethod
+    def backward(ctx, gs, _):
+        lr_n, ref_n, idx = ctx.saved_tensors
+        b, lr_len, d = ref_n.shape
+        idx = idx.long()
+        w = gs.float()[:, :, None]                                  # [B, L, 1]
+        d_lr = d_ref = None
+        if ctx.needs_input_grad[0]:
+            sel = torch.gather(ref_n, 1, idx[:, :, None].expand(-1, -1, d))
+            d_lr = (sel.float() * w).transpose(1, 2).to(lr_n.dtype)
+        if ctx.needs_input_grad[1]:
+            flat = (idx + torch.arange(b, device=idx.device)[:, None] * lr_len)
+            d_ref = torch.zeros((b * lr_len, d), dtype=torch.float32,
+                                device=ref_n.device)
+            d_ref.index_add_(0, flat.reshape(-1),
+                             (lr_n.float().transpose(1, 2) * w).reshape(-1, d))
+            d_ref = d_ref.view(b, lr_len, d).to(ref_n.dtype)
+        return d_lr, d_ref
+
+
 def correlation_argmax_lds(lr: torch.Tensor, ref: torch.Tensor,
                            inv_ref: torch.Tensor):
     """lr [B, D, L], ref [B, D, Lr] raw unfolds, inv_ref [B, Lr] f32
     -> (S [B, L] f32, idx [B, L] int32) of max_k <bf16(ref_k * inv_k), lr_i>."""
     _check_unfold_args("correlation_argmax_lds", lr, ref, False, inv_ref)
-    if _lib.dispatch_device(lr, "correlation_argmax_lds") == "cpu":
-        return correlation_argmax_lds_plain(lr, ref, inv_ref)
-    return _corr_unfold("correlation_argmax_lds", lr, ref, inv_ref)
+    _lib.dispatch_device(lr, "correlation_argmax_lds")
+    return CorrLds.apply(lr, ref, inv_ref)
 
 
 def correlation_argmax_ld(lr: torch.Tensor, ref: torch.Tensor):
     """lr [B, D, L], ref [B, D, Lr] (already scaled, `scaled_reference`)
     -> (S [B, L] f32, idx [B, L] int32) of max_k <ref_k, lr_i>."""
     _check_unfold_args("correlation_argmax_ld", lr, ref, False)
-    if _lib.dispatch_device(lr, "correlation_argmax_ld") == "cpu":
-        return correlation_argmax_ld_plain(lr, ref)
-    return _corr_unfold("correlation_argmax_ld", lr, ref, None)
+    _lib.dispatch_device(lr, "correlation_argmax_ld")
+    return CorrLd.apply(lr, ref)
 
 
-def correlation_argmax(lr_n: torch.Tensor, ref_n: torch.Tensor):
-    """lr_n [B, D, L] (columns L2-normalized), ref_n [B, Lr, D] (rows
-    L2-normalized) -> (S [B, L] f32, idx [B, L] int32) of max_k
-    <ref_n[k], lr_n[:, i]>."""
-    _check_unfold_args("correlation_argmax", lr_n, ref_n, True)
-    if _lib.dispatch_device(lr_n, "correlation_argmax") == "cpu":
-        return correlation_argmax_plain(lr_n, ref_n)
+def _corr_rows(lr_n: torch.Tensor, ref_n: torch.Tensor):
+    """Launch K7 on a [B, D, L] query and [B, Lr, D] reference rows."""
     dev = lr_n.device
     _lib.require_cuda_tensor(lr_n, "lr_n", torch.bfloat16, dev)
     _lib.require_cuda_tensor(ref_n, "ref_n", torch.bfloat16, dev)
@@ -306,3 +413,12 @@ def correlation_argmax(lr_n: torch.Tensor, ref_n: torch.Tensor):
                                      _lib.stream_ptr(lr_n)), "correlation_argmax")
     _lib.LAUNCHES["correlation_argmax"] += 1
     return s, idx
+
+
+def correlation_argmax(lr_n: torch.Tensor, ref_n: torch.Tensor):
+    """lr_n [B, D, L] (columns L2-normalized), ref_n [B, Lr, D] (rows
+    L2-normalized) -> (S [B, L] f32, idx [B, L] int32) of max_k
+    <ref_n[k], lr_n[:, i]>."""
+    _check_unfold_args("correlation_argmax", lr_n, ref_n, True)
+    _lib.dispatch_device(lr_n, "correlation_argmax")
+    return CorrRows.apply(lr_n, ref_n)

@@ -11,7 +11,9 @@ whole block (x + attention + MLP), still rolled and padded; K8 only the
 attention branch (LN1, attention, projection), still rolled; K9 takes the
 block's residual stream after the attention, x + K8's output un-rolled,
 and adds the MLP. A CPU tensor takes the plain version; a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises. None of the three has a backward (training
+runs the XLA-style block in `models/swinir.py`, as the JAX package does),
+so each refuses inputs that need a gradient.
 """
 
 from __future__ import annotations
@@ -253,6 +255,7 @@ def swin_block(x: torch.Tensor, y: torch.Tensor, wts: SwinBlockWeights,
     """x, y [B, Hp, Wp, C] raw (un-normalized), rolled and padded ->
     the block output [B, Hp, Wp, C], rolled and padded."""
     _check_window_args("swin_block", x, y, ws, heads)
+    _lib.refuse_grad("swin_block", x, y, *wts)
     if _lib.dispatch_device(x, "swin_block") == "cpu":
         return swin_block_plain(x, y, wts, ws, shift, pad_h, pad_w, heads)
     dev = x.device
@@ -285,6 +288,7 @@ def window_cross_attention(x: torch.Tensor, y: torch.Tensor,
     residual), rolled and padded. Only the LN1 / attention / projection
     fields of `wts` are read."""
     _check_window_args("window_cross_attention", x, y, ws, heads)
+    _lib.refuse_grad("window_cross_attention", x, y, *wts)
     if _lib.dispatch_device(x, "window_cross_attention") == "cpu":
         return window_cross_attention_plain(x, y, wts, ws, shift, pad_h, pad_w,
                                             heads)
@@ -312,6 +316,7 @@ def ln_mlp(x: torch.Tensor, wts: SwinBlockWeights) -> torch.Tensor:
     if x.ndim < 2 or not x.is_contiguous():
         raise ValueError(f"ln_mlp takes contiguous [..., C] rows, got "
                          f"{tuple(x.shape)}")
+    _lib.refuse_grad("ln_mlp", x, *wts)
     if _lib.dispatch_device(x, "ln_mlp") == "cpu":
         return ln_mlp_plain(x, wts)
     dev = x.device

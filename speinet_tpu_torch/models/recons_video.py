@@ -9,7 +9,9 @@ Stage and parameter names follow the original PyTorch model:
     outBlock: ResBlocks, then {n} 5x5 conv
 The encoder's convs, including the two stride-2 ones, and every ResBlock
 conv run through the K1 kernel; the transposed convs and the out conv
-were XLA convs on the TPU and are PyTorch calls here.
+were XLA convs on the TPU and are PyTorch calls here. Every stage takes
+`train`: then no conv goes through K1, as the JAX package runs no fast conv
+in training (recons_video.py:35-40), and the gates use batch statistics.
 """
 
 from __future__ import annotations
@@ -54,37 +56,39 @@ class ReconsVideo(nn.Module):
 
     @staticmethod
     def _encode(stage: nn.Sequential, x: torch.Tensor, stride: int,
-                dtype: torch.dtype) -> torch.Tensor:
-        x = conv_k1(x, stage[0][0], True, dtype, stride=stride)
+                dtype: torch.dtype, train: bool) -> torch.Tensor:
+        x = conv_k1(x, stage[0][0], True, dtype, stride=stride, train=train)
         for blk in stage[1:]:
-            x = blk(x, dtype)
+            x = blk(x, dtype, train)
         return x
 
     def _decode(self, stage: nn.Sequential, x: torch.Tensor,
-                dtype: torch.dtype) -> torch.Tensor:
+                dtype: torch.dtype, train: bool) -> torch.Tensor:
         x = x.to(dtype)
         for blk in stage[:self.n_resblock]:
-            x = blk(x, dtype)
+            x = blk(x, dtype, train)
         up = stage[self.n_resblock][0]
         y = F.conv_transpose2d(x.permute(0, 3, 1, 2), up.weight.to(dtype),
                                up.bias.to(dtype), stride=2, padding=1,
                                output_padding=1)
         return torch.relu(y).permute(0, 2, 3, 1).contiguous()
 
-    def encode_pyramid(self, x: torch.Tensor, dtype: torch.dtype):
+    def encode_pyramid(self, x: torch.Tensor, dtype: torch.dtype,
+                       train: bool = False):
         """inBlock -> encoder_first -> encoder_second: (lv1, lv2, lv3)."""
-        lv1 = self._encode(self.inBlock, x, 1, dtype)
-        lv2 = self._encode(self.encoder_first, lv1, 2, dtype)
-        return lv1, lv2, self._encode(self.encoder_second, lv2, 2, dtype)
+        lv1 = self._encode(self.inBlock, x, 1, dtype, train)
+        lv2 = self._encode(self.encoder_first, lv1, 2, dtype, train)
+        return lv1, lv2, self._encode(self.encoder_second, lv2, 2, dtype, train)
 
-    def decode_second(self, x, dtype):
-        return self._decode(self.decoder_second, x, dtype)
+    def decode_second(self, x, dtype, train: bool = False):
+        return self._decode(self.decoder_second, x, dtype, train)
 
-    def decode_first(self, x, dtype):
-        return self._decode(self.decoder_first, x, dtype)
+    def decode_first(self, x, dtype, train: bool = False):
+        return self._decode(self.decoder_first, x, dtype, train)
 
-    def out_block(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def out_block(self, x: torch.Tensor, dtype: torch.dtype,
+                  train: bool = False) -> torch.Tensor:
         x = x.to(dtype)
         for blk in self.outBlock[:self.n_resblock]:
-            x = blk(x, dtype)
+            x = blk(x, dtype, train)
         return conv_nhwc(x, self.outBlock[self.n_resblock], dtype)

@@ -1,11 +1,14 @@
-"""SPEINet's inference forward (port of `speinet_tpu/models/speinet.py`;
-parity: model/speinet.py).
+"""SPEINet's forward, for inference and training (port of
+`speinet_tpu/models/speinet.py`; parity: model/speinet.py).
 
 Input frames are floats in [0, rgb_range]; feature maps are NHWC in the
 compute dtype; parameters are float32 and are cast at use.
 `forward(x)` restores the centre frame of [B, 5, 3, H, W] windows with
-per-sample routing, as `SPEINet.__call__` does. Three more methods split
-that forward so a video engine can reuse per-frame work across windows:
+per-sample routing, as `SPEINet.__call__` does; `forward(x, train=True,
+generator=g)` is its training form (autograd on, no K1 / K2 / K8 / K9,
+batch-statistics BatchNorm, DropPath drawn from `g`), as `__call__(x,
+train=True)` is. Three more methods, inference only, split that forward so
+a video engine can reuse per-frame work across windows:
     encode_window_legs   enc(f) + enc(RL5(f)) and enc(f) + enc(RL1(f))
     anchor_pyramid       the sharp anchor's encoder pyramid
     restore_from_features  Swin fusion of both neighbours, fusion conv,
@@ -88,6 +91,7 @@ class SPEINet(nn.Module):
                  depths: Sequence[int] = (6, 6, 6, 6, 6, 6),
                  num_heads: Sequence[int] = (8, 8, 8, 8, 8, 8),
                  window_size: int = 5, mlp_ratio: float = 2.0,
+                 drop_path_rate: float = 0.1,
                  dtype: torch.dtype = torch.float32, *,
                  swin_fuse_block: bool = True, corr_raw: bool = True,
                  corr_banded: bool = True, corr_scaled: bool = True):
@@ -101,7 +105,7 @@ class SPEINet(nn.Module):
                                corr_scaled=corr_scaled)
         self.recons_net = ReconsVideo(f, n_resblock, out_channels)
         self.swin = SwinIRCross(4 * f, embed_dim, depths, num_heads,
-                                window_size, mlp_ratio,
+                                window_size, mlp_ratio, drop_path_rate,
                                 fuse_block=swin_fuse_block)
         self.conv_lv1 = nn.Conv2d(2 * f, f, 1)
         self.conv_lv2 = nn.Conv2d(4 * f, 2 * f, 1)
@@ -125,41 +129,45 @@ class SPEINet(nn.Module):
                    n_resblock=cfg.n_resblock, out_channels=cfg.n_colors,
                    embed_dim=cfg.embed_dim, depths=tuple(cfg.depths),
                    num_heads=tuple(cfg.num_heads), window_size=cfg.window_size,
-                   mlp_ratio=cfg.mlp_ratio, dtype=_DTYPES[cfg.compute_dtype],
+                   mlp_ratio=cfg.mlp_ratio, drop_path_rate=cfg.drop_path_rate,
+                   dtype=_DTYPES[cfg.compute_dtype],
                    **paths)
 
-    def _fast(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    def _fast(self, conv: nn.Conv2d, x: torch.Tensor, train: bool) -> torch.Tensor:
         """3x3 refinement conv + ReLU through K1, bias rounded to the compute
-        dtype first (FastConv, speinet_tpu/models/blocks.py:291-296)."""
-        return conv_k1(x, conv, True, self.dtype, round_bias=True)
+        dtype first (FastConv, speinet_tpu/models/blocks.py:291-296); a
+        PyTorch conv in training."""
+        return conv_k1(x, conv, True, self.dtype, round_bias=True, train=train)
 
     def _c1(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
         return conv1x1(x, conv, self.dtype)
 
-    def _fuse(self, f_mid: torch.Tensor, neighbor_feats) -> torch.Tensor:
+    def _fuse(self, f_mid: torch.Tensor, neighbor_feats, train: bool = False,
+              generator: torch.Generator | None = None) -> torch.Tensor:
         """Both neighbours through one batched swin call (same K/V stream)."""
         b = f_mid.shape[0]
         x_in = torch.cat([f_mid] * len(neighbor_feats), dim=0)
         y_in = torch.cat(list(neighbor_feats), dim=0)
-        f_trans = self.swin(x_in, y_in, self.dtype)
+        f_trans = self.swin(x_in, y_in, self.dtype, train, generator)
         parts = [f_mid.to(self.dtype)] + [f_trans[k * b:(k + 1) * b]
                                           for k in range(len(neighbor_feats))]
         return torch.cat(parts, dim=-1)
 
-    def _decode(self, f_fusion, weight_s, t_lv3, t_lv2, t_lv1):
+    def _decode(self, f_fusion, weight_s, t_lv3, t_lv2, t_lv1, train: bool = False):
         """Decoder with S-weighted texture injection and multi-scale cross
         refinement (parity: speinet.py:92-120)."""
         r, dt = self.recons_net, self.dtype
         up = bicubic_upsample_nhwc
+        fast = lambda conv, x: self._fast(conv, x, train)
         sharp_v3 = self._c1(self.conv_lv3, torch.cat([f_fusion, t_lv3], -1)) * weight_s
         f_lv3 = f_fusion + sharp_v3
-        decoder_v2 = r.decode_second(f_lv3, dt)
+        decoder_v2 = r.decode_second(f_lv3, dt, train)
         w2 = up(weight_s, 2).to(dt)
         f_v2 = self._c1(self.conv_lv2, torch.cat([decoder_v2, t_lv2], -1)) * w2
         f_lv2 = decoder_v2 + f_v2
 
         search_1 = torch.relu(self._c1(self.search1, up(f_lv3, 2)))
-        search_2 = self._fast(self.search3, f_lv2)
+        search_2 = fast(self.search3, f_lv2)
         search_11 = torch.relu(self._c1(self.search2,
                                         torch.cat([decoder_v2, search_1], -1)))
         search_22 = torch.relu(self._c1(self.search2,
@@ -167,19 +175,19 @@ class SPEINet(nn.Module):
         f_v3 = decoder_v2 + search_11
         f_lv2 = f_lv2 + search_22
 
-        decoder_v1 = r.decode_first(f_lv2, dt)
+        decoder_v1 = r.decode_first(f_lv2, dt, train)
         w4 = up(weight_s, 4).to(dt)
         f_v1 = self._c1(self.conv_lv1, torch.cat([decoder_v1, t_lv1], -1)) * w4
         f_lv1 = decoder_v1 + f_v1
 
         search_13 = torch.relu(self._c1(self.search13, up(f_v3, 2)))
-        search_23 = self._fast(self.search33, up(f_lv2, 2))
-        search_33 = self._fast(self.search43, f_lv1)
-        search_113 = self._fast(self.search33, torch.cat([search_13, search_23], -1))
-        search_223 = self._fast(self.search33, torch.cat([search_13, search_33], -1))
-        search_323 = self._fast(self.search33, torch.cat([search_23, search_33], -1))
+        search_23 = fast(self.search33, up(f_lv2, 2))
+        search_33 = fast(self.search43, f_lv1)
+        search_113 = fast(self.search33, torch.cat([search_13, search_23], -1))
+        search_223 = fast(self.search33, torch.cat([search_13, search_33], -1))
+        search_323 = fast(self.search33, torch.cat([search_23, search_33], -1))
         f_lv1 = f_lv1 + search_113 + search_223 + search_323
-        return r.out_block(f_lv1, dt)
+        return r.out_block(f_lv1, dt, train)
 
     @torch.no_grad()
     def encode_window_legs(self, frames: torch.Tensor):
@@ -210,22 +218,42 @@ class SPEINet(nn.Module):
         """Fusion + transfer + decode for a batch whose routing the host
         knows ('sharp' or 'self'), or per sample ('mixed', with `has_sharp`
         [B] bool). Returns [B, 3, H, W] float32."""
-        f_fusion = self._fuse(f_mid, neighbor_feats)
+        return self._restore(f_mid, neighbor_feats, sharp_lv1, sharp_lv2,
+                             sharp_lv3, routing, has_sharp)
+
+    def _restore(self, f_mid, neighbor_feats, sharp_lv1, sharp_lv2, sharp_lv3,
+                 routing: str, has_sharp: torch.Tensor | None = None,
+                 train: bool = False,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+        f_fusion = self._fuse(f_mid, neighbor_feats, train, generator)
         f_fusion = self._c1(self.fusion, f_fusion)
         weight_s, t3, t2, t1 = transfer(self.SelfTransfer, f_fusion, sharp_lv1,
                                         sharp_lv2, sharp_lv3, routing, self.dtype,
                                         has_sharp, **self.corr_paths)
-        out = self._decode(f_fusion, weight_s.to(self.dtype), t3, t2, t1)
+        out = self._decode(f_fusion, weight_s.to(self.dtype), t3, t2, t1, train)
         return out.permute(0, 3, 1, 2).float()
 
-    @torch.no_grad()
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """x [B, 5, 3, H, W]: frames t-1, t, t+1, the pre-sharp and the
         sub-sharp frame -> the restored centre frame [B, 3, H, W] float32
         (parity: speinet.py:215-274). A sample routes to the sharp search
         when frame 3 is not all zero, while the sharp pyramid encodes frame
         4: the reference's quirk, kept. RL5 of the centre frame, RL1 of both
-        neighbours and all seven encoder legs run as batched calls."""
+        neighbours and all seven encoder legs run as batched calls.
+
+        Inference runs without autograd. With `train` autograd is on, the
+        convs and Swin blocks take their training forms, the BatchNorm
+        gates normalise with the batch statistics of the stacked legs and
+        update their running statistics, and DropPath draws from
+        `generator`."""
+        if not train:
+            with torch.no_grad():
+                return self._forward(x, False, None)
+        return self._forward(x, True, generator)
+
+    def _forward(self, x: torch.Tensor, train: bool,
+                 generator: torch.Generator | None) -> torch.Tensor:
         dt = self.dtype
         b = x.shape[0]
         has_sharp = ~(x[:, 3] == 0).flatten(1).all(dim=1)
@@ -239,9 +267,9 @@ class SPEINet(nn.Module):
         deb_nb = rl(torch.cat([prev, nxt], dim=0), 1)
         enc_in = torch.cat([sharp, mid, deb_mid, prev, deb_nb[:b], nxt, deb_nb[b:]],
                            dim=0).contiguous()
-        lv1, lv2, lv3 = self.recons_net.encode_pyramid(enc_in, dt)
+        lv1, lv2, lv3 = self.recons_net.encode_pyramid(enc_in, dt, train)
         leg = lambda k: lv3[k * b:(k + 1) * b]
         f_mid = leg(1) + leg(2)
         neighbor_feats = (leg(3) + leg(4), leg(5) + leg(6))
-        return self.restore_from_features(f_mid, neighbor_feats, lv1[:b], lv2[:b],
-                                          lv3[:b], "mixed", has_sharp)
+        return self._restore(f_mid, neighbor_feats, lv1[:b], lv2[:b], lv3[:b],
+                             "mixed", has_sharp, train, generator)

@@ -12,6 +12,16 @@ package's SPEINET_SWIN_FUSEBLOCK=0) a block is split instead: K8 computes
 the attention branch, the residual add runs in the compute dtype, and K9
 adds the MLP, as the TPU ran blocks before K2. The 3x3 convs were XLA convs
 on the TPU and are PyTorch calls here.
+
+With `train=True` a block runs the JAX package's XLA branch instead
+(`WindowCrossAttention.__call__`'s non-fused path and the LN/MLP,
+swinir.py:236-265, 372-387) in plain PyTorch ops, with stochastic depth
+(per-sample DropPath on both residual branches, rates linspace(0,
+drop_path_rate, blocks), swinir.py:95-109, 691) and its rolls through the
+K3 autograd function. Each W/SW block pair is recomputed in the backward
+pass (`torch.utils.checkpoint`, as `nn.remat` at swinir.py:437-441); the
+DropPath masks are drawn before any pair runs, so the recomputation uses
+the same ones.
 """
 
 from __future__ import annotations
@@ -22,10 +32,13 @@ from typing import Sequence
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from speinet_tpu_torch.kernels import (SwinBlockWeights, ln_mlp, roll2d,
                                        swin_block, window_cross_attention)
-from speinet_tpu_torch.kernels.swin import layer_norm
+from speinet_tpu_torch.kernels.swin import (layer_norm, window_mask,
+                                            window_partition, window_reverse)
 from speinet_tpu_torch.models.blocks import conv_nhwc
 
 
@@ -39,6 +52,21 @@ def relative_position_index(wh: int, ww: int) -> np.ndarray:
     rel[:, :, 1] += ww - 1
     rel[:, :, 0] *= 2 * ww - 1
     return rel.sum(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _index_on(ws: int, device: torch.device) -> torch.Tensor:
+    """The flat ws x ws relative-position index, kept on `device`: a fresh
+    host-to-device copy in every block would synchronise the stream."""
+    return torch.from_numpy(relative_position_index(ws, ws).reshape(-1)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _mask_on(hp: int, wp: int, ws: int, shift: int, pad_h: int, pad_w: int,
+             device: torch.device, dtype: torch.dtype) -> torch.Tensor | None:
+    """`window_mask` kept on `device` in `dtype`, for the same reason."""
+    mask = window_mask(hp, wp, ws, shift, pad_h, pad_w)
+    return None if mask is None else torch.from_numpy(mask).to(device, dtype)
 
 
 class WindowCrossAttention(nn.Module):
@@ -62,10 +90,48 @@ class WindowCrossAttention(nn.Module):
                 f"the window shrinks to {ws} on this input but the model was "
                 f"built for window {self.window_size}; build it with "
                 f"window_size={ws} for inputs this small")
-        idx = torch.from_numpy(relative_position_index(ws, ws).reshape(-1))
         n = ws * ws
-        bias = table[idx.to(table.device)].reshape(n, n, self.num_heads)
+        bias = table[_index_on(ws, table.device)].reshape(n, n, self.num_heads)
         return bias.permute(2, 0, 1).float().contiguous()
+
+    def train_forward(self, x_img: torch.Tensor, y_img: torch.Tensor,
+                      norm1: nn.LayerNorm, ws: int, shift: int, pad_h: int,
+                      pad_w: int, dtype: torch.dtype) -> torch.Tensor:
+        """The XLA branch (swinir.py:236-265): norm1 on both raw streams,
+        windowed attention with the relative-position bias and the shift /
+        pad mask, softmax in float32, projection; [B, Hp, Wp, C] rolled and
+        padded in, the same out, in the compute dtype."""
+        b, hp, wp, c = x_img.shape
+        h = self.num_heads
+        hd = c // h
+        n = ws * ws
+        lin = lambda t, m: F.linear(t, m.weight.to(dtype), m.bias.to(dtype))
+        xw = window_partition(layer_norm(x_img, norm1.weight, norm1.bias).to(dtype), ws)
+        yw = window_partition(layer_norm(y_img, norm1.weight, norm1.bias).to(dtype), ws)
+        bw = xw.shape[0]
+        k, v = lin(xw, self.qkv_x).split(c, dim=-1)
+        q = lin(yw, self.qkv_y).reshape(bw, n, h, hd).transpose(1, 2) * hd ** -0.5
+        k = k.reshape(bw, n, h, hd).transpose(1, 2)
+        v = v.reshape(bw, n, h, hd).transpose(1, 2)
+        attn = q @ k.transpose(-1, -2) + self.rel_pos_bias(ws).to(dtype)[None]
+        mask = _mask_on(hp, wp, ws, shift, pad_h, pad_w, attn.device, dtype)
+        if mask is not None:
+            nw = mask.shape[0]
+            attn = (attn.reshape(bw // nw, nw, h, n, n)
+                    + mask[None, :, None]).reshape(bw, h, n, n)
+        attn = torch.softmax(attn.float(), dim=-1).to(dtype)
+        out = (attn @ v).transpose(1, 2).reshape(bw, n, c)
+        return window_reverse(lin(out, self.proj), ws, hp, wp)
+
+
+def drop_path(x: torch.Tensor, keep: torch.Tensor | None, rate: float) -> torch.Tensor:
+    """Per-sample stochastic depth (timm's DropPath, swinir.py:95-109):
+    samples whose `keep` [B] is False are zeroed, the rest scaled by
+    1 / (1 - rate); `keep` None is the identity."""
+    if keep is None:
+        return x
+    shape = (-1,) + (1,) * (x.ndim - 1)
+    return torch.where(keep.reshape(shape), x / (1.0 - rate), torch.zeros_like(x))
 
 
 class Mlp(nn.Module):
@@ -103,8 +169,11 @@ class SwinBlock(nn.Module):
             f32(self.norm2.bias), mat(self.mlp.fc1), f32(self.mlp.fc1.bias),
             mat(self.mlp.fc2), f32(self.mlp.fc2.bias))
 
-    def forward(self, x: torch.Tensor, y, x_size, dtype: torch.dtype) -> torch.Tensor:
-        """x [B, L, C]; y [B, L, C] or (y, y pre-rolled by the shift)."""
+    def forward(self, x: torch.Tensor, y, x_size, dtype: torch.dtype,
+                train: bool = False, drop=None) -> torch.Tensor:
+        """x [B, L, C]; y [B, L, C] or (y, y pre-rolled by the shift). With
+        `train`, the XLA branch; `drop` is None or (rate, keep [2, B] bool):
+        the DropPath masks of the attention and the MLP branch."""
         hh, ww = x_size
         b, l, c = x.shape
         y_rolled = None
@@ -128,6 +197,9 @@ class SwinBlock(nn.Module):
             if ss > 0:
                 xi = roll2d(xi, ss, ss)
                 yi = roll2d(yi, ss, ss)
+        if train:
+            return self._train_forward(x, xi, yi, x_size, ws, ss, ph, pw, dtype,
+                                       drop)
         wts = self.weights(dtype, ws)
         block = swin_block if self.fuse_block else window_cross_attention
         out = block(xi.contiguous(), yi.contiguous(), wts, ws, ss, ph, pw,
@@ -140,6 +212,24 @@ class SwinBlock(nn.Module):
         if self.fuse_block:
             return out
         return ln_mlp((x.to(dtype) + out).contiguous(), wts)
+
+    def _train_forward(self, x, xi, yi, x_size, ws, ss, ph, pw, dtype, drop):
+        """Attention branch, residual, LN2 / MLP, residual, each branch
+        through DropPath (swinir.py:366-387); the stream stays in `dtype`."""
+        hh, ww = x_size
+        b, l, c = x.shape
+        rate, keep = drop if drop is not None else (0.0, (None, None))
+        out = self.attn.train_forward(xi, yi, self.norm1, ws, ss, ph, pw, dtype)
+        if ss > 0:
+            out = roll2d(out.contiguous(), -ss, -ss)
+        if ph or pw:
+            out = out[:, :hh, :ww]
+        x = x.to(dtype) + drop_path(out.reshape(b, l, c), keep[0], rate)
+        m = self.mlp
+        xm = layer_norm(x, self.norm2.weight, self.norm2.bias).to(dtype)
+        xm = F.gelu(F.linear(xm, m.fc1.weight.to(dtype), m.fc1.bias.to(dtype)))
+        xm = F.linear(xm, m.fc2.weight.to(dtype), m.fc2.bias.to(dtype))
+        return x + drop_path(xm, keep[1], rate)
 
 
 class BasicLayer(nn.Module):
@@ -163,14 +253,28 @@ class RSTB(nn.Module):
                                          mlp_ratio, fuse_block)
         self.conv = nn.Conv2d(dim, dim, 3, 1, 1)
 
-    def forward(self, x, y, x_size, dtype):
+    def forward(self, x, y, x_size, dtype, train: bool = False, drops=None):
+        """`drops`: per block, None or (rate, keep masks), in training."""
+        blocks = self.residual_group.blocks
         res = x
-        for blk in self.residual_group.blocks:
-            res = blk(res, y, x_size, dtype)
+        if train and len(blocks) % 2 == 0:
+            # W/SW pairs recomputed in the backward pass (swinir.py:437-441)
+            for i in range(0, len(blocks), 2):
+                res = checkpoint(self._pair, res, y, x_size, dtype, i,
+                                 drops[i], drops[i + 1], use_reentrant=False)
+        else:
+            for i, blk in enumerate(blocks):
+                res = blk(res, y, x_size, dtype, train,
+                          drops[i] if train else None)
         hh, ww = x_size
         b, l, c = res.shape
         img = conv_nhwc(res.reshape(b, hh, ww, c), self.conv, dtype)
         return img.reshape(b, l, c) + x
+
+    def _pair(self, x, y, x_size, dtype, i, drop_w, drop_sw):
+        blocks = self.residual_group.blocks
+        x = blocks[i](x, y, x_size, dtype, True, drop_w)
+        return blocks[i + 1](x, y, x_size, dtype, True, drop_sw)
 
 
 class PatchEmbed(nn.Module):
@@ -187,11 +291,14 @@ class SwinIRCross(nn.Module):
     def __init__(self, in_chans: int, embed_dim: int = 256,
                  depths: Sequence[int] = (6, 6, 6, 6, 6, 6),
                  num_heads: Sequence[int] = (8, 8, 8, 8, 8, 8),
-                 window_size: int = 5, mlp_ratio: float = 2.0, *,
-                 fuse_block: bool = True):
+                 window_size: int = 5, mlp_ratio: float = 2.0,
+                 drop_path_rate: float = 0.1, *, fuse_block: bool = True):
         super().__init__()
         self.embed_dim = embed_dim
         self.window_size = window_size
+        self.depths = tuple(depths)
+        # the stochastic-depth rate of every block, in order (swinir.py:691)
+        self.drop_rates = np.linspace(0, drop_path_rate, sum(depths)).tolist()
         self.conv_first = nn.Conv2d(in_chans, embed_dim, 3, 1, 1)
         self.patch_embed = PatchEmbed(embed_dim)
         self.layers = nn.ModuleList(
@@ -202,8 +309,30 @@ class SwinIRCross(nn.Module):
         self.conv_after_body = nn.Conv2d(embed_dim, embed_dim, 3, 1, 1)
         self.conv_last = nn.Conv2d(embed_dim, in_chans, 3, 1, 1)
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor,
-                dtype: torch.dtype) -> torch.Tensor:
+    def draw_drops(self, batch: int, device: torch.device,
+                   generator: torch.Generator | None):
+        """Per layer, per block: None where the rate is 0, else (rate, keep
+        [2, batch] bool), drawn on the generator's device and moved to
+        `device`, one row per residual branch."""
+        gen_dev = generator.device if generator is not None else device
+        drops, off = [], 0
+        for depth in self.depths:
+            layer = []
+            for rate in self.drop_rates[off:off + depth]:
+                if rate == 0.0:
+                    layer.append(None)
+                    continue
+                u = torch.rand((2, batch), generator=generator, device=gen_dev)
+                layer.append((rate, (u < 1.0 - rate).to(device)))
+            drops.append(layer)
+            off += depth
+        return drops
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor, dtype: torch.dtype,
+                train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """With `train`, the XLA branch of every block and DropPath masks
+        drawn from `generator` (the default generator if None)."""
         b, hh, ww, _ = x.shape
         e = self.embed_dim
         x_first = conv_nhwc(x, self.conv_first, dtype)
@@ -222,9 +351,11 @@ class SwinIRCross(nn.Module):
             y_in = (ye, ye_sw)
         else:
             y_in = ye
+        drops = self.draw_drops(b, x.device, generator) if train else \
+            [None] * len(self.layers)
         feat = xe
-        for layer in self.layers:
-            feat = layer(feat, y_in, (hh, ww), dtype)
+        for layer, layer_drops in zip(self.layers, drops):
+            feat = layer(feat, y_in, (hh, ww), dtype, train, layer_drops)
         feat = layer_norm(feat, self.norm.weight, self.norm.bias,
                           self.norm.eps).to(dtype).reshape(b, hh, ww, e)
         res = conv_nhwc(feat, self.conv_after_body, dtype) + x_first

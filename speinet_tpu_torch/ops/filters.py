@@ -68,7 +68,10 @@ def richardson_lucy(image: torch.Tensor, kernel2d: torch.Tensor,
 
     image: [B, C, H, W]. With `box_size` the kernel is declared to be
     `box_kernel(box_size)` and the blur runs separably (same values)."""
-    lap = torch.tensor(_LAPLACIAN_RL, dtype=image.dtype, device=image.device)
+    # the box path needs no kernel tensor (a copy from the host would
+    # synchronise the stream)
+    lap = (None if box_size is not None else
+           torch.tensor(_LAPLACIAN_RL, dtype=image.dtype, device=image.device))
     out = image
     for _ in range(num_iterations):
         if box_size is not None:

@@ -1,5 +1,8 @@
-"""Inference metrics (port of `speinet_tpu/ops/metrics.py`).
+"""Metrics (port of `speinet_tpu/ops/metrics.py`).
 
+- `psnr_shave`: train / eval PSNR on [0, rgb_range] float tensors with a
+  4-pixel shave (util/utils.py:81-92); `postprocess_uint8` turns a CHW
+  float image into HWC uint8 (util/utils.py:68-78).
 - `psnr_uint8_host`: float64 host PSNR on uint8 images after a 4-pixel
   border crop (inference_SPEINet.py:484-500), numpy as in the JAX package.
 - `ssim_matlab`: MATLAB-equivalent SSIM, 11x11 Gaussian (sigma 1.5), valid
@@ -11,6 +14,22 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def psnr_shave(img1: torch.Tensor, img2: torch.Tensor, rgb_range: float = 1.0,
+               shave: int = 4) -> torch.Tensor:
+    """Training-loop PSNR, [..., C, H, W] (a 0-d tensor on the device)."""
+    a = img1[..., shave:-shave, shave:-shave] / rgb_range
+    b = img2[..., shave:-shave, shave:-shave] / rgb_range
+    mse = ((a - b) ** 2).mean()
+    return torch.where(mse == 0, torch.full_like(mse, 100.0),
+                       20.0 * torch.log10(1.0 / torch.sqrt(mse)))
+
+
+def postprocess_uint8(img: torch.Tensor, rgb_range: float = 1.0) -> np.ndarray:
+    """[C, H, W] float in [0, rgb_range] -> HWC uint8 numpy."""
+    out = torch.clamp(torch.round(img.float() * (255.0 / rgb_range)), 0, 255)
+    return out.to(torch.uint8).permute(1, 2, 0).cpu().numpy()
 
 
 def psnr_uint8_host(img1: np.ndarray, img2: np.ndarray,

@@ -11,6 +11,8 @@ share one row gather because they use the same tile-grid indices. That row
 gather is K10 (`kernels/gather.py::row_gather`), the port of the TPU kernel
 written to replace it (`speinet_tpu/ops/pallas_gather.py::row_gather`); it
 copies rows exactly, so the fold's sums are those of the indexing it took.
+Every step is differentiable (K10's backward is a scatter-add), so the
+texture transfer trains through it.
 """
 
 from __future__ import annotations
@@ -90,9 +92,10 @@ def gather_fold3_nhwc(ref1: torch.Tensor, ref2: torch.Tensor,
     for i in range(0, b, cb):
         n = min(cb, b - i)
         g = row_gather(rows[i:i + cb], flat[i:i + cb]).reshape(n, nh, nw, 9, -1)
-        outs.append((fold(g[..., :w3], 1, c3),
-                     fold(g[..., w3:w3 + w2], 2, c2),
-                     fold(g[..., w3 + w2:], 4, c1)))
+        # one split (its backward is one concatenation of the three scales'
+        # gradients, not three full-width zero-padded copies)
+        g3, g2, g1 = g.split((w3, w2, g.shape[-1] - w3 - w2), dim=-1)
+        outs.append((fold(g3, 1, c3), fold(g2, 2, c2), fold(g1, 4, c1)))
     if len(outs) == 1:
         return outs[0]
     return tuple(torch.cat([o[k] for o in outs]) for k in range(3))

@@ -497,3 +497,72 @@ def test_corr_unfold_limits(gen):
     lr = _bf16((1, 2300, 20), gen)
     with pytest.raises(ValueError, match="multiple of 8"):
         kernels.correlation_argmax(lr, lr.transpose(1, 2).contiguous())
+
+
+# --- backward passes of the training path --------------------------------------
+
+def test_roll2d_backward_kernel(gen):
+    """K3's VJP is K3 with the shifts negated: the gradient equals
+    torch.roll's bit for bit, the backward launching K3 once."""
+    x = _bf16((2, 15, 20, 256), gen).requires_grad_(True)
+    xr = x.detach().clone().requires_grad_(True)
+    g = _bf16((2, 15, 20, 256), gen)
+    for sh, sw in ((2, 2), (-2, 3)):
+        kernels.reset_launches()
+        kernels.roll2d(x, sh, sw).backward(g)
+        assert kernels.LAUNCHES["roll2d"] == 2
+        assert kernels.BACKWARD_LAUNCHES["roll2d"] == 1
+        torch.roll(xr, (-sh, -sw), dims=(1, 2)).backward(g)
+        assert torch.equal(x.grad, xr.grad)
+        x.grad = xr.grad = None
+
+
+def _leaves(*ts):
+    return [t.detach().clone().requires_grad_(True) for t in ts]
+
+
+def test_corr_lds_backward_kernel(gen):
+    """K5 under autograd on the card (its forward launches the kernel) against
+    the CPU plain version on the same bf16 operands: equal indices (each query
+    is a noisy copy of one reference column, so winners are clear), then the
+    gradients. d lr is the same elementwise product on both devices; d ref
+    and d inv are f32 scatter-adds in another order, d ref then rounded to
+    bf16: one bf16 step of the largest apart at most."""
+    b, d, l, lr_len = 2, 1152, 700, 900
+    ref = torch.randn((b, d, lr_len), generator=gen, device="cuda")
+    pick = torch.randint(0, lr_len, (b, l), generator=gen, device="cuda")
+    lr = (torch.gather(ref, 2, pick[:, None].expand(-1, d, -1))
+          + 0.3 * torch.randn((b, d, l), generator=gen, device="cuda")).to(torch.bfloat16)
+    ref = ref.to(torch.bfloat16)
+    inv = 0.5 + torch.rand((b, lr_len), generator=gen, device="cuda")
+    gs = torch.randn((b, l), generator=gen, device="cuda")
+    card = _leaves(lr, ref, inv)
+    kernels.reset_launches()
+    s, idx = kernels.correlation_argmax_lds(*card)
+    s.backward(gs)
+    assert kernels.LAUNCHES["correlation_argmax_lds"] == 1
+    cpu = _leaves(*(t.cpu() for t in (lr, ref, inv)))
+    s_c, idx_c = kernels.correlation_argmax_lds(*cpu)
+    s_c.backward(gs.cpu())
+    assert torch.equal(idx.cpu(), idx_c)
+    assert torch.equal(card[0].grad.cpu(), cpu[0].grad)
+    for a, c in zip(card[1:], cpu[1:]):
+        tol = 2.0 ** -8 * c.grad.float().abs().max().item()
+        assert (a.grad.cpu().float() - c.grad.float()).abs().max().item() <= tol
+
+
+def test_row_gather_backward_kernel(gen):
+    """K10 under autograd on the card: the scatter-add of the output gradient
+    (many repeated indices) against the CPU's, f32 sums in another order
+    rounded to bf16."""
+    rows = _bf16((2, 58, 896), gen)
+    idx = torch.randint(0, 9, (2, 300), generator=gen, device="cuda")
+    g = _bf16((2, 300, 896), gen)
+    card, = _leaves(rows)
+    kernels.reset_launches()
+    kernels.row_gather(card, idx).backward(g)
+    assert kernels.LAUNCHES["row_gather"] == 1
+    cpu, = _leaves(rows.cpu())
+    kernels.row_gather(cpu, idx.cpu()).backward(g.cpu())
+    tol = 2.0 ** -8 * cpu.grad.float().abs().max().item()
+    assert (card.grad.cpu().float() - cpu.grad.float()).abs().max().item() <= tol

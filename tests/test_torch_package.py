@@ -24,7 +24,7 @@ def test_fresh_import_leaves_jax_out():
     code = ("import sys\n"
             "import speinet_tpu_torch, speinet_tpu_torch.infer, "
             "speinet_tpu_torch.kernels, speinet_tpu_torch.utils.convert, "
-            "speinet_tpu_torch.ops.metrics\n"
+            "speinet_tpu_torch.ops.metrics, speinet_tpu_torch.main_train\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'speinet_tpu' or m.startswith('speinet_tpu.'))\n"
             "assert not bad, bad\n")
