@@ -38,7 +38,13 @@ toolkit. In order it:
    the direct forward on a mixed batch, the self-ensemble and the chopped
    forward, then the restores and the mixed forward of the `split`
    configuration; the direct forward of a `--n_feat 64` model (Swin depth
-   cut to 2 blocks); and the sharpness detector's labels of the video;
+   cut to 2 blocks); the restores and the mixed forward at n_sequence 5 and
+   at n_sequence 1 (`nseq1`, untimed); and the sharpness detector's labels
+   of the video;
+   then the same at n_sequence 5 (`nseq5_cached`, `nseq5_direct`: four
+   neighbour streams per restore), whose two engines must agree at 40 dB on
+   the windows the JAX package's two engines route alike (its direct
+   engine routes on frame 3, a blurry neighbour at that length);
 5. trains: `Trainer.train()` for one epoch (4 steps) at the full width of
    the template and its batch of 20 at patch 200, in bf16, on a synthetic
    in-memory tree (no image files, no plots), then `Trainer.test()` on two
@@ -49,8 +55,20 @@ toolkit. In order it:
    frames/s, peak memory); then the card's bf16 train step against the
    CPU's f32 one at 80x80 (Swin depth 2), which must also reject a planted
    fault (K3's backward with the shift not negated), and K3 / K5 / K10 at
-   the train step's shapes against their plain versions;
-6. prints the `kernels` JSON line, the card's name and power limit, and as
+   the train step's shapes against their plain versions; then the same
+   epoch and card-vs-CPU step (the discriminator one more gradient group,
+   no planted fault) with the VGG and GAN plugins (`train_plugins`, loss
+   1*L1+2*HEM+0.1*VGG22+0.01*GAN): their loss columns finite, the
+   discriminator's weights moved, and a checkpoint giving back the
+   discriminator and its Adam state exactly;
+6. `k4_grad`: K4 under autograd at the cached restore's shape, 'sharp' and
+   'self', and one restore_from_features(train=True) backward at 80x80,
+   their K4 launches counted; the 720p gradients against autograd of an
+   unfold form where the argmaxes agree, rejecting a planted backward that
+   drops the dx shift; the backward timed;
+7. `profile`: `--profile`'s torch.profiler trace of a 2-window run of the
+   cached engine, which must name the port's kernels;
+8. prints the `kernels` JSON line, the card's name and power limit, and as
    the last line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero; without CUDA, or outside a checkout,
@@ -680,23 +698,24 @@ def psnr_db(a, b, peak: float = 1.0) -> float:
     return 10 * math.log10(peak * peak / max(mse, 1e-20))
 
 
-def small_frames():
-    """5 synthetic 80x80 frames [5, 3, 80, 80] in [0, 1] on the CPU."""
+def small_frames(n: int = 5):
+    """n synthetic 80x80 frames [n, 3, 80, 80] in [0, 1] on the CPU."""
     import numpy as np
     import torch
 
     return torch.from_numpy(np.stack(
-        [f.transpose(2, 0, 1) for f in synthetic_video(5, 80, 80, seed=2)])
+        [f.transpose(2, 0, 1) for f in synthetic_video(n, 80, 80, seed=2)])
     ).float() / 255.0
 
 
 def mixed_batch(frames):
-    """[2, 5, 3, H, W]: the window, and the same with frame 3 zeroed (no
-    sharp neighbour: the 'self' routing)."""
+    """[2, T, 3, H, W]: the window, and the same with the routing frame
+    zeroed (the 'self' routing): frame 3, or the last frame of a 3-frame
+    window (n_sequence 1), as the model reads it."""
     import torch
 
     blind = frames.clone()
-    blind[3] = 0.0
+    blind[min(3, len(frames) - 1)] = 0.0
     return torch.stack([frames, blind])
 
 
@@ -743,11 +762,12 @@ def check_wide(cfg):
                 launches=counts)
 
 
-def check_against_cpu(cfg, inf, full: bool = True, **paths):
+def check_against_cpu(cfg, card_model, full: bool = True, **paths):
     """The card (kernels, bf16) against the CPU plain path (f32), same
-    weights and kernel-path switches `paths`, at 80x80: the cached restore
-    of one window in both host routings, and on a mixed batch (sample 1 has
-    frame 3 zeroed) the direct forward and, if `full`, the 8-way
+    weights, window length and kernel-path switches `paths`, at 80x80: the
+    cached restore of one window in both host routings (the centre's
+    features and every neighbour's), and on a mixed batch (sample 1 has its
+    routing frame zeroed) the direct forward and, if `full`, the 8-way
     self-ensemble and the chopped forward."""
     import torch
     from speinet_tpu_torch.infer import forward_x8
@@ -755,9 +775,11 @@ def check_against_cpu(cfg, inf, full: bool = True, **paths):
     from speinet_tpu_torch.parallel.chop import chop_forward
 
     cpu = SPEINet.from_config(cfg.replace(compute_dtype="float32"), **paths)
-    cpu.load_state_dict({k: v.cpu() for k, v in inf.model.state_dict().items()})
+    cpu.load_state_dict({k: v.cpu() for k, v in card_model.state_dict().items()})
     cpu.eval()
-    frames = small_frames()
+    ns = cfg.n_sequence
+    mid = ns // 2
+    frames = small_frames(ns + 2)
     results = {}
 
     def compare(name, gpu_o, cpu_o):
@@ -765,12 +787,13 @@ def check_against_cpu(cfg, inf, full: bool = True, **paths):
 
     for routing in ("sharp", "self"):
         outs = []
-        for model, dev in ((inf.model, "cuda"), (cpu, "cpu")):
+        for model, dev in ((card_model, "cuda"), (cpu, "cpu")):
             fr = frames.to(dev)
-            m, n = model.encode_window_legs(fr[:3])
-            p1, p2, p3 = model.anchor_pyramid(fr[3:4])
-            o = model.restore_from_features(m[1:2], (n[0:1], n[2:3]), p1, p2, p3,
-                                            routing)
+            m, n = model.encode_window_legs(fr[:ns])
+            p1, p2, p3 = model.anchor_pyramid(fr[ns + 1:ns + 2])
+            o = model.restore_from_features(
+                m[mid:mid + 1], [n[i:i + 1] for i in range(ns) if i != mid],
+                p1, p2, p3, routing)
             outs.append(o.float().cpu())
         compare(f"restore_{routing}", *outs)
     x = mixed_batch(frames)
@@ -779,7 +802,7 @@ def check_against_cpu(cfg, inf, full: bool = True, **paths):
         runs += [("forward_x8", lambda m, t: forward_x8(t, m)),
                  ("chop", lambda m, t: chop_forward(m, t, shave=cfg.chop_shave))]
     for name, fn in runs:
-        compare(name, fn(inf.model, x.cuda()).float().cpu(), fn(cpu, x))
+        compare(name, fn(card_model, x.cuda()).float().cpu(), fn(cpu, x))
     return results
 
 
@@ -988,6 +1011,8 @@ def run_training(cfg, workdir: str):
     trainer = Trainer(cfg, memory_data(cfg, train_root, test_root, store), model,
                       logger, device="cuda")
     params0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    dis0 = None if trainer.gan is None else {
+        k: v.detach().clone() for k, v in trainer.gan.dis.state_dict().items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1018,7 +1043,8 @@ def run_training(cfg, workdir: str):
     for _ in range(3):
         torch.cuda.synchronize()
         t1 = time.time()
-        train_step(model, trainer.optimizer, trainer.loss, inp, gt, trainer.generator)
+        train_step(model, trainer.optimizer, trainer.loss, inp, gt, trainer.generator,
+                   trainer.gan)
         torch.cuda.synchronize()
         step_ms.append((time.time() - t1) * 1e3)
     ms = sum(step_ms) / len(step_ms)
@@ -1029,14 +1055,52 @@ def run_training(cfg, workdir: str):
     if moved["weights"] < 0.9 * total["weights"] or moved["running_means"] != total[
             "running_means"]:
         raise AssertionError(f"training moved {moved} of {total}")
-    record = dict(batch=cfg.batch_size, patch=cfg.patch_size, steps=steps,
+    record = dict(loss=cfg.loss, batch=cfg.batch_size, patch=cfg.patch_size, steps=steps,
                   epoch_wall_s=wall, epoch_loss=losses[-1],
+                  epoch_components=dict(zip(trainer.ckp.comp_names,
+                                            trainer.ckp.comp_log[0].tolist())),
                   test_windows=len(trainer.data.loader_test),
                   test_s=test_s, test_psnr=psnr, moved=moved, of=total,
                   ms_per_step=ms, step_ms=step_ms,
                   frames_per_s=cfg.batch_size / (ms / 1e3),
                   peak_memory_gib=peak / 2 ** 30)
-    return record, counts, backward
+    return record, counts, backward, trainer, dis0
+
+
+def check_plugins(record, trainer, dis0, workdir: str):
+    """The VGG / GAN epoch: its VGG22, GAN and DIS columns finite (DIS
+    positive), every discriminator weight moved, and a checkpoint of the
+    trainer's state restoring the discriminator and its Adam state exactly
+    into a fresh one."""
+    import math
+
+    import torch
+    from speinet_tpu_torch.models.speinet import SPEINet
+    from speinet_tpu_torch.training.adversarial import init_gan_state
+    from speinet_tpu_torch.training.train_state import make_optimizer
+    from speinet_tpu_torch.utils.checkpoint import CheckpointManager
+
+    comps = record["epoch_components"]
+    if not all(math.isfinite(comps.get(k, math.nan)) for k in ("VGG22", "GAN", "DIS")) \
+            or not comps["DIS"] > 0:
+        raise AssertionError(f"plugin loss columns: {comps}")
+    dis = trainer.gan.dis.state_dict()
+    still = [k for k in dis if torch.equal(dis[k], dis0[k])]
+    if still:
+        raise AssertionError(f"discriminator weights did not move: {still}")
+    ckpt = CheckpointManager(workdir + "/roundtrip")
+    ckpt.save(trainer.model, trainer.optimizer, trainer.step, 1, gan=trainer.gan)
+    model = SPEINet.from_config(trainer.cfg)
+    fresh = init_gan_state(torch.Generator().manual_seed(99), "cuda")
+    ckpt.restore(model, make_optimizer(trainer.cfg, model), "model_latest", fresh)
+    bad = [k for k, v in fresh.dis.state_dict().items() if not torch.equal(v, dis[k])]
+    want, got = trainer.gan.opt.state_dict(), fresh.opt.state_dict()
+    bad += [f"opt {i}.{f}" for i, st in want["state"].items() for f, v in st.items()
+            if not torch.equal(got["state"][i][f].cpu(), v.cpu())]
+    if bad or len(got["state"]) != len(want["state"]) or not want["state"]:
+        raise AssertionError(f"discriminator checkpoint round trip differs: {bad}")
+    return dict(components=comps, discriminator_tensors_moved=len(dis),
+                round_trip="exact", adam_states=len(want["state"]))
 
 
 GRAD_GROUPS = (("encoder", ("recons_net.inBlock.", "recons_net.encoder_")),
@@ -1071,7 +1135,7 @@ def wrong_roll():
     return roll
 
 
-def check_train_against_cpu(cfg):
+def check_train_against_cpu(cfg, plant: bool = True):
     """The card's bf16 train step against the port's f32 CPU step, same
     weights and batch (the mixed 80x80 pair; the Swin depth cut to 2 blocks,
     widths full): the loss within 2%, the gradient's cosine >= 0.99 for each
@@ -1083,12 +1147,15 @@ def check_train_against_cpu(cfg):
     few Swin tensors' gradients dwarf the rest) while the attention tensors
     of the shifted block fall to 0.04-0.97, which the per-tensor rule sees;
     bf16 against f32 keeps each such tensor near 0.99 (a CPU rehearsal in
-    bf16: 0.9898 at the lowest)."""
+    bf16: 0.9898 at the lowest). With a GAN term in `cfg.loss` the
+    discriminator (its own step's gradient) is one more group; `plant`
+    runs the planted fault."""
     import torch
     import speinet_tpu_torch.models.swinir as swinir
     from speinet_tpu_torch.models.speinet import SPEINet, init_weights
     from speinet_tpu_torch.training.loss import LossComputer
-    from speinet_tpu_torch.training.train_state import make_optimizer, train_step
+    from speinet_tpu_torch.training.train_state import (make_gan_state, make_optimizer,
+                                                        train_step)
 
     small = cfg.replace(depths=[2], num_heads=[8])
     gpu = init_weights(SPEINet.from_config(small), 0).to("cuda")
@@ -1099,11 +1166,16 @@ def check_train_against_cpu(cfg):
 
     def step(model, dev):
         model.load_state_dict({k: v.to(dev) for k, v in state.items()})
+        gan = make_gan_state(small, dev)      # the same seeded draw on both
         total, _ = train_step(model, make_optimizer(small, model),
-                              LossComputer(small.loss), x.to(dev), gt.to(dev),
-                              torch.Generator().manual_seed(5))
+                              LossComputer(small.loss, rgb_range=small.rgb_range),
+                              x.to(dev), gt.to(dev), torch.Generator().manual_seed(5),
+                              gan)
+        named = list(model.named_parameters()) + (
+            [] if gan is None else [(f"discriminator.{n}", p)
+                                    for n, p in gan.dis.named_parameters()])
         return total.item(), {n: p.grad.double().flatten().cpu()
-                              for n, p in model.named_parameters() if p.grad is not None}
+                              for n, p in named if p.grad is not None}
 
     def cos(a, b):
         return torch.nn.functional.cosine_similarity(a, b, dim=0).item()
@@ -1112,7 +1184,8 @@ def check_train_against_cpu(cfg):
         loss_rel = abs(card[0] - ref[0]) / abs(ref[0])
         groups = {g: cos(*(torch.cat([d[n] for n in ref[1] if n.startswith(pre)])
                            for d in (card[1], ref[1])))
-                  for g, pre in GRAD_GROUPS}
+                  for g, pre in GRAD_GROUPS + (("discriminator", ("discriminator.",)),)
+                  if any(n.startswith(pre) for n in ref[1])}
         tensors = sorted((cos(card[1][n], ref[1][n]), n) for n in ref[1]
                          if ref[1][n].numel() >= 64)
         return dict(loss_card=card[0], loss_cpu=ref[0], loss_rel=loss_rel,
@@ -1124,6 +1197,8 @@ def check_train_against_cpu(cfg):
     good = compare(step(gpu, "cuda"), ref)
     if not good["ok"]:
         raise AssertionError(f"train step card vs cpu: {good}")
+    if not plant:
+        return dict(step=good)
     swinir.roll2d, real = wrong_roll(), swinir.roll2d
     try:
         planted = compare(step(gpu, "cuda"), ref)
@@ -1133,6 +1208,227 @@ def check_train_against_cpu(cfg):
         raise AssertionError(f"train step check accepts the planted roll fault: {planted}")
     return dict(step=good, planted_fault_rejected=planted)
 
+# --- n_sequence, K4 under autograd, profiling --------------------------------
+
+def route_alike(n_seq: int, n_frames: int):
+    """Names of the windows of run_main_path's video that the JAX package's
+    two engines route alike at window length `n_seq`: its direct engine
+    routes on frame 3, which at n_sequence 5 is a blurry neighbour, so every
+    window searches the sub-sharp frame, never zeroed there; its cached
+    engine does so only where the pre-sharp frame lies within 7 frames of
+    the window's last one and the sub-sharp frame too."""
+    import os
+
+    import numpy as np
+    from speinet_tpu_torch.data.indices import gene_seq, gene_seq_nsf
+    from speinet_tpu_torch.infer import window_metas
+
+    labels = np.zeros(n_frames, np.int64)
+    labels[[0, n_frames - 1]] = 1
+    pre, sub = gene_seq_nsf(labels, n_seq=n_seq, border=True)
+    _, padded = gene_seq([f"synthetic/{i:08d}" for i in range(n_frames)], n_seq=n_seq,
+                         border=True)
+    return [os.path.basename(c).split(".")[0]
+            for c, _, hs, akey in window_metas(padded, pre, sub, n_seq)
+            if hs and akey != "<ZERO>"]
+
+
+def check_n_sequence_1(cfg):
+    """An n_sequence 1 model (3-frame windows: the frame, its pre- and
+    sub-sharp frames; no neighbour, so the Swin fusion is the residual
+    pass of the centre alone) at full width on the card against its f32 CPU
+    path at 80x80: both restores and the mixed forward, whose routing frame
+    is the sub-sharp one (the JAX package's clamped frame 3). Untimed."""
+    from speinet_tpu_torch.kernels import LAUNCHES, reset_launches
+    from speinet_tpu_torch.models.speinet import SPEINet, init_weights
+
+    one = cfg.replace(n_sequence=1)
+    model = init_weights(SPEINet.from_config(one), 0).to("cuda").eval()
+    reset_launches()
+    out = check_against_cpu(one, model, full=False)
+    out["launches"] = dict(LAUNCHES)
+    if out["launches"]["banded_corr_argmax"] <= 0 or out["launches"]["swin_block"] <= 0:
+        raise AssertionError(f"n_sequence 1: kernels not launched {out['launches']}")
+    return out
+
+
+def _banded_grads(f, g, inv, routing, gs, card: bool, idx=None):
+    """Gradients of sum(gs * S) w.r.t. (f, [g,] inv) for K4's search of f
+    in g ('sharp') or in f transposed and flipped ('self'): through the
+    K4 autograd function (`card`), or through a differentiable unfold form
+    of S at the winners `idx`, in float32."""
+    import torch
+    import torch.nn.functional as F
+    from speinet_tpu_torch.kernels import banded_corr_argmax
+
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in ((f, g, inv) if card else (f.float(), g.float(), inv))]
+    ref = leaves[1] if routing == "sharp" else torch.flip(
+        leaves[0].transpose(1, 2), dims=(1,)).contiguous()
+    if card:
+        s, idx = banded_corr_argmax(leaves[0], ref, leaves[2])
+    else:
+        lu = F.unfold(leaves[0].permute(0, 3, 1, 2), 3, padding=1)
+        ru = F.unfold(ref.permute(0, 3, 1, 2), 3, padding=1)
+        i = idx.long()
+        s = ((torch.gather(ru, 2, i[:, None].expand(-1, ru.shape[1], -1)) * lu).sum(1)
+             * torch.gather(leaves[2], 1, i))
+    s.backward(gs)
+    used = leaves if routing == "sharp" else leaves[::2]
+    return [t.grad.float() for t in used], idx
+
+
+def check_k4_grad(rng_seed: int):
+    """K4 under autograd: at the cached restore's shape ([1, 180, 320, 128]
+    bf16, 'sharp' and 'self') the forward launches K4 and the backward
+    (`banded_backward`) runs on the card; then one restore_from_features
+    (routing 'sharp', train=True, Swin depth 2) at 80x80 backpropagates
+    through K4 into the model. Launch counts are reset before those runs
+    and read after them. Then the checks: the 720p gradients against
+    autograd of an unfold form of S at the plain forward's winners, with
+    the cotangent zeroed where the kernel's and the plain argmax differ
+    (a near tie may flip under rounding); within two bf16 steps of the
+    largest element (d lr and d ref are cast to bf16 once each, and 'self'
+    adds the two). The check must reject a planted backward that drops the
+    dx shift of every patch offset."""
+    import torch
+    import speinet_tpu_torch.kernels.corr as corr
+    from speinet_tpu_torch.kernels import (LAUNCHES, banded_corr_argmax,
+                                          banded_corr_argmax_plain, reset_launches)
+    from speinet_tpu_torch.models.search_transfer import patch_inv_norms
+    from speinet_tpu_torch.models.speinet import SPEINet, init_weights
+
+    g = torch.Generator(device="cuda").manual_seed(rng_seed)
+    h, w, c = 180, 320, 128
+    cases = {}
+    for routing in ("sharp", "self"):
+        f = torch.rand((1, h, w, c), generator=g, device="cuda").to(torch.bfloat16)
+        gm = torch.rand((1, h, w, c), generator=g, device="cuda").to(torch.bfloat16)
+        ref = gm if routing == "sharp" else torch.flip(f.transpose(1, 2), dims=(1,))
+        inv = patch_inv_norms(ref).contiguous()
+        gs = torch.randn((1, h * w), generator=g, device="cuda")
+        cases[routing] = (f, gm, inv, gs, ref.contiguous())
+    reset_launches()
+    card = {}
+    for routing, (f, gm, inv, gs, _) in cases.items():
+        card[routing] = _banded_grads(f, gm, inv, routing, gs, card=True)
+    small = SPEINet.from_config(cfg_template().replace(depths=[2], num_heads=[8]))
+    model = init_weights(small, 0).to("cuda")
+    fr = small_frames().cuda()
+    m, n = model.encode_window_legs(fr[:3])
+    pyr = model.anchor_pyramid(fr[4:5])
+    out = model.restore_from_features(m[1:2], [n[0:1], n[2:3]], *pyr, "sharp",
+                                      train=True,
+                                      generator=torch.Generator(device="cuda").manual_seed(1))
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    if counts["banded_corr_argmax"] < 3:
+        raise AssertionError(f"k4_grad: K4 launched {counts['banded_corr_argmax']} "
+                             f"times, fewer than the 3 calls")
+    restore_grads = {k: model.get_parameter(k).grad for k in (
+        "fusion.weight", "conv_lv3.weight", "swin.conv_first.weight")}
+    if not all(t is not None and torch.isfinite(t).all() and t.abs().max() > 0
+               for t in restore_grads.values()):
+        raise AssertionError("restore_from_features(train=True): no gradient "
+                             "reached the fusion, decoder or Swin weights")
+
+    def errors(grads, want):
+        return max(((a - b).abs().max() / b.abs().max()).item()
+                   for a, b in zip(grads, want))
+
+    rows = {}
+    for routing, (f, gm, inv, gs, ref) in cases.items():
+        (grads, idx) = card[routing]
+        s_p, idx_p = banded_corr_argmax_plain(f, ref, inv)
+        agree = idx == idx_p
+        gs_m = gs * agree
+        # the card's gradient again under the masked cotangent (the first
+        # run above is the counted one, on the unmasked cotangent)
+        grads, _ = _banded_grads(f, gm, inv, routing, gs_m, card=True)
+        want, _ = _banded_grads(f, gm, inv, routing, gs_m, card=False, idx=idx_p)
+        err = errors(grads, want)
+        if not err <= 2.0 ** -7:
+            raise AssertionError(f"k4_grad {routing}: relative error {err}")
+        real = corr.OFFSETS
+        corr.OFFSETS = tuple((dy, 0) for dy, _ in real)
+        try:
+            planted = errors(_banded_grads(f, gm, inv, routing, gs_m, card=True)[0], want)
+        finally:
+            corr.OFFSETS = real
+        if planted <= 2.0 ** -7:
+            raise AssertionError(f"k4_grad {routing}: the planted backward without "
+                                 f"the dx shift passes ({planted})")
+        s, idx = banded_corr_argmax(f, ref, inv)
+        bwd_ms = time_ms(lambda: corr.banded_backward(f, ref, inv, s, idx, gs),
+                         iters=5, warmup=1)
+        # its least traffic: the maps, inv, S, idx and the cotangent read
+        # once, the three cotangents written once
+        bms, by = bound(0.0, nbytes(f, ref, inv, s, idx, gs) + nbytes(f, ref, inv))
+        rows[routing] = dict(shape=f"{routing} F[1,{h},{w},{c}]", rel_err=err,
+                             planted_rel_err=planted,
+                             idx_differs=int((~agree).sum()), backward_ms=bwd_ms,
+                             backward_bound_ms=bms, backward_bound_by=by)
+    return dict(rows=rows, launches=counts,
+                restore_train_grad_max={k: v.abs().max().item()
+                                        for k, v in restore_grads.items()})
+
+
+PORT_KERNEL_FUNCTIONS = ("conv_kernel", "swin_block_kernel", "roll_kernel",
+                         "banded_corr_kernel", "corr_unfold_kernel",
+                         "row_gather_kernel", "swin_attn_kernel", "swin_mlp_kernel")
+
+
+def check_profile(cfg, frames):
+    """`--profile`'s function (`infer.profile_run`) around a 2-window run of
+    the cached engine: the trace file exists and names the port's kernels."""
+    import glob
+    import os
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from speinet_tpu_torch.infer import Inference, profile_run
+
+    keys = [f"synthetic/{i:08d}" for i in range(2)]
+    store = dict(zip(keys, frames[:2]))
+    labels = np.array([1, 0], np.int64)
+    with tempfile.TemporaryDirectory() as res:
+        inf = Inference(cfg, data_path=res, model_path="", result_path=res,
+                        save_image=False, batch_windows=2, cache_pyramids=True,
+                        device="cuda", seed=0)
+        t0 = time.time()
+        try:
+            with ThreadPoolExecutor(max_workers=2) as pool:
+                profile_run(lambda: inf.infer_video("profiled", keys, keys, labels,
+                                                    store.__getitem__, pool),
+                            os.path.join(res, "trace"), inf.device)
+        finally:
+            inf.close()
+        wall = time.time() - t0
+        traces = glob.glob(os.path.join(res, "trace", "*.pt.trace.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"--profile wrote {traces}")
+        with open(traces[0]) as fh:
+            events = json.load(fh)["traceEvents"]
+        size = os.path.getsize(traces[0])
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    port = sorted({k for k in PORT_KERNEL_FUNCTIONS if any(k in n for n in kernels)})
+    if not port:
+        raise AssertionError(f"the trace names no kernel of the port among "
+                             f"{len(kernels)} kernels")
+    return dict(windows=2, wall_s=wall, trace_bytes=size, kernel_names=len(kernels),
+                port_kernels=port)
+
+
+def cfg_template():
+    """The SPEINet template, in bf16, as every phase runs it."""
+    from speinet_tpu_torch.config import Config, set_template
+
+    return set_template(Config(template="SPEINet")).replace(
+        compute_dtype="bfloat16", n_threads=4)
+
+
 def main() -> int:
     import torch
 
@@ -1140,7 +1436,6 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     try:
-        from speinet_tpu_torch.config import Config, set_template
         from speinet_tpu_torch.kernels import _lib
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})", file=sys.stderr)
@@ -1181,39 +1476,45 @@ def main() -> int:
         print(f"cublas reference (not a kernel of the port; {kernel}'s weight "
               "products): " + json.dumps(ref), flush=True)
 
-    cfg = set_template(Config(template="SPEINet")).replace(
-        compute_dtype="bfloat16", n_threads=4)
+    cfg = cfg_template()
     frames = synthetic_video(12, 720, 1280, seed=1)
     n_frames = len(frames)
-    # each path: (engine, kernel-path switches, kernels it must launch,
-    # kernels it must not), with its launch counts reset just before it
+    # each path: (engine, kernel-path switches, window length, kernels it
+    # must launch, kernels it must not), with its launch counts reset just
+    # before it
     split = dict(swin_fuse_block=False, corr_raw=False)
     prescaled = dict(corr_banded=False, corr_scaled=False)
     paths = {
-        "cached": (True, {}, ["conv2d", "swin_block", "roll2d", "banded_corr_argmax",
-                              "correlation_argmax_lds", "row_gather"], []),
-        "direct": (False, {}, ["conv2d", "swin_block", "roll2d",
-                               "correlation_argmax_lds", "row_gather"], []),
-        "split": (True, split, ["conv2d", "roll2d", "window_cross_attention",
-                                "ln_mlp", "correlation_argmax", "row_gather"],
+        "cached": (True, {}, 3, ["conv2d", "swin_block", "roll2d", "banded_corr_argmax",
+                                 "correlation_argmax_lds", "row_gather"], []),
+        "direct": (False, {}, 3, ["conv2d", "swin_block", "roll2d",
+                                  "correlation_argmax_lds", "row_gather"], []),
+        "split": (True, split, 3, ["conv2d", "roll2d", "window_cross_attention",
+                                   "ln_mlp", "correlation_argmax", "row_gather"],
                   ["swin_block", "banded_corr_argmax", "correlation_argmax_lds"]),
-        "prescaled": (True, prescaled, ["conv2d", "swin_block", "roll2d",
-                                        "correlation_argmax_ld", "row_gather"],
+        "prescaled": (True, prescaled, 3, ["conv2d", "swin_block", "roll2d",
+                                           "correlation_argmax_ld", "row_gather"],
                       ["banded_corr_argmax", "correlation_argmax_lds"]),
+        # n_sequence 5: four neighbour streams per restore (K2 at batch 4B)
+        "nseq5_cached": (True, {}, 5, ["conv2d", "swin_block", "roll2d",
+                                       "banded_corr_argmax", "row_gather"], []),
+        "nseq5_direct": (False, {}, 5, ["conv2d", "swin_block", "roll2d",
+                                        "correlation_argmax_lds", "row_gather"], []),
     }
     launches = {k: 0 for k in checks}
     by_path = {}
     outputs, vs_cached, engines = {}, {}, {}
-    for path, (cached, switches, needs, shuns) in paths.items():
+    for path, (cached, switches, n_seq, needs, shuns) in paths.items():
         t1 = time.time()
         inf, counts, wall, psnr, ssim, outputs[path] = run_main_path(
-            cfg, frames, cache_pyramids=cached, **switches)
+            cfg.replace(n_sequence=n_seq), frames, cache_pyramids=cached, **switches)
         engines[path] = inf
         per_frame = {k: v / n_frames * 1e3 for k, v in inf.stage_seconds.items() if v}
-        line = dict(engine=path, switches=switches, frames=n_frames, size="1280x720",
-                    batch_windows=2, wall_s=wall, ms_per_frame=per_frame,
-                    launches=counts, mean_psnr_vs_gt=float(sum(psnr) / len(psnr)))
-        if path != "cached":
+        line = dict(engine=path, switches=switches, n_sequence=n_seq, frames=n_frames,
+                    size="1280x720", batch_windows=2, wall_s=wall,
+                    ms_per_frame=per_frame, launches=counts,
+                    mean_psnr_vs_gt=float(sum(psnr) / len(psnr)))
+        if n_seq == 3 and path != "cached":
             vs_cached[path] = [psnr_db(outputs[path][k], outputs["cached"][k])
                                for k in sorted(outputs["cached"])]
             line["psnr_vs_cached_db"] = vs_cached[path]
@@ -1237,44 +1538,91 @@ def main() -> int:
     for path, vs in vs_cached.items():
         if not min(vs) >= 40.0:
             raise AssertionError(f"{path} vs cached engine: {min(vs):.2f} dB < 40")
-    print("card vs cpu: " + json.dumps(check_against_cpu(cfg, engines["direct"])),
+    # at n_sequence 5 the engines agree only where the JAX package's two
+    # engines route alike (its direct engine always searches the sub-sharp
+    # frame there)
+    alike = route_alike(5, n_frames)
+    vs5 = {k: psnr_db(outputs["nseq5_direct"][k], outputs["nseq5_cached"][k])
+           for k in alike}
+    print("n_sequence 5, direct vs cached where the JAX engines route alike: "
+          + json.dumps(dict(windows=alike, psnr_db=vs5)), flush=True)
+    if not alike or not min(vs5.values()) >= 40.0:
+        raise AssertionError(f"n_sequence 5 direct vs cached engine: {vs5}")
+    print("card vs cpu: " + json.dumps(check_against_cpu(cfg, engines["direct"].model)),
           flush=True)
     print("card vs cpu (split): " + json.dumps(
-        check_against_cpu(cfg, engines["split"], full=False, **split)), flush=True)
+        check_against_cpu(cfg, engines["split"].model, full=False, **split)), flush=True)
     print("card vs cpu (n_feat 64): " + json.dumps(check_wide(cfg)), flush=True)
+    print("card vs cpu (n_sequence 5): " + json.dumps(
+        check_against_cpu(cfg.replace(n_sequence=5), engines["nseq5_direct"].model,
+                          full=False)), flush=True)
+    t1 = time.time()
+    print("card vs cpu (n_sequence 1): " + json.dumps(check_n_sequence_1(cfg)),
+          flush=True)
+    print(f"n_sequence 1: checked in {time.time() - t1:.1f} s", flush=True)
     print("detector: " + json.dumps(check_detector(frames)), flush=True)
 
     # the training main path: its launch counts reset just before the epoch
-    t1 = time.time()
-    with tempfile.TemporaryDirectory() as work:
-        record, counts, backward = run_training(cfg, work)
-    print("main path (train): " + json.dumps(dict(record, launches=counts,
-                                                  backward_launches=backward)),
-          flush=True)
-    print(f"main path (train): run in {time.time() - t1:.1f} s", flush=True)
-    missing = [k for k in TRAIN_LAUNCHES if counts[k] <= 0]
-    if backward["roll2d"] <= 0:
-        missing.append("roll2d (backward)")
-    if missing:
-        raise AssertionError(f"kernels not launched in the train steps: {missing}")
-    stray = [k for k in TRAIN_SHUNS if counts[k] > 0]
-    if stray:
-        raise AssertionError(f"kernels without a backward launched in the train "
-                             f"steps: {stray}")
-    by_path["train"] = counts
-    for k in launches:
-        launches[k] += counts[k]
-    t1 = time.time()
-    print("train step card vs cpu: " + json.dumps(check_train_against_cpu(cfg)),
-          flush=True)
-    print(f"train step card vs cpu: checked in {time.time() - t1:.1f} s", flush=True)
+    # the training main paths, the template's loss and the plugins' spec
+    # (the VGG and GAN weights of the JAX package's plugin tests); launch
+    # counts reset just before each epoch
+    records = {}
+    for path, loss in (("train", cfg.loss),
+                       ("train_plugins", cfg.loss + "+0.1*VGG22+0.01*GAN")):
+        t1 = time.time()
+        with tempfile.TemporaryDirectory() as work:
+            record, counts, backward, trainer, dis0 = run_training(
+                cfg.replace(loss=loss), work)
+            if trainer.gan is not None:
+                record["plugins"] = check_plugins(record, trainer, dis0, work)
+        del trainer
+        records[path] = record
+        print(f"main path ({path}): " + json.dumps(dict(record, launches=counts,
+                                                        backward_launches=backward)),
+              flush=True)
+        print(f"main path ({path}): run in {time.time() - t1:.1f} s", flush=True)
+        missing = [k for k in TRAIN_LAUNCHES if counts[k] <= 0]
+        if backward["roll2d"] <= 0:
+            missing.append("roll2d (backward)")
+        if missing:
+            raise AssertionError(f"kernels not launched in the {path} steps: {missing}")
+        stray = [k for k in TRAIN_SHUNS if counts[k] > 0]
+        if stray:
+            raise AssertionError(f"kernels without a backward launched in the {path} "
+                                 f"steps: {stray}")
+        by_path[path] = counts
+        for k in launches:
+            launches[k] += counts[k]
+        t1 = time.time()
+        print(f"{path} step card vs cpu: " + json.dumps(check_train_against_cpu(
+            cfg.replace(loss=loss), plant=path == "train")), flush=True)
+        print(f"{path} step card vs cpu: checked in {time.time() - t1:.1f} s",
+              flush=True)
+    record = records["train"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
-    print(f"training (batch {record['batch']}, patch {record['patch']}, bf16): "
-          f"{record['ms_per_step']:.1f} ms per step, {record['frames_per_s']:.2f} "
-          f"frames/s, peak memory {record['peak_memory_gib']:.2f} GiB; {smi}",
-          flush=True)
+    for path, rec in records.items():
+        print(f"{path} (batch {rec['batch']}, patch {rec['patch']}, bf16, loss "
+              f"{rec['loss']}): {rec['ms_per_step']:.1f} ms per step, "
+              f"{rec['frames_per_s']:.2f} frames/s, peak memory "
+              f"{rec['peak_memory_gib']:.2f} GiB; {smi}", flush=True)
+    for path in ("cached", "direct", "nseq5_cached", "nseq5_direct"):
+        per_frame = {k: v / n_frames * 1e3
+                     for k, v in engines[path].stage_seconds.items() if v}
+        print(f"{path}: ms per 720p frame " + json.dumps(per_frame) + f"; {smi}",
+              flush=True)
+    # K4 under autograd: its launches counted over the phase's main runs
+    t1 = time.time()
+    k4 = check_k4_grad(0)
+    print("k4_grad: " + json.dumps(k4), flush=True)
+    print(f"k4_grad: checked in {time.time() - t1:.1f} s", flush=True)
+    by_path["k4_grad"] = k4["launches"]
+    for k in launches:
+        launches[k] += k4["launches"][k]
+    t1 = time.time()
+    print("profile: " + json.dumps(check_profile(cfg, frames)), flush=True)
+    print(f"profile: checked in {time.time() - t1:.1f} s", flush=True)
     t1 = time.time()
     train_shapes = check_train_shapes(0)
     for name, rows in train_shapes.items():
@@ -1324,7 +1672,10 @@ def main() -> int:
             / sum(r["ms"] for r in rows) / 1e9,
             train_ms=sum(r["ms"] for r in train_rows) if train_rows else None,
             train_bound_ms=sum(r["bound_ms"] for r in train_rows) if train_rows
-            else None))
+            else None,
+            backward_ms=(sum(r["backward_ms"] for r in k4["rows"].values())
+                         if name == "banded_corr_argmax" else
+                         sum(r.get("backward_ms", 0.0) for r in train_rows) or None)))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

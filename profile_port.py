@@ -15,7 +15,10 @@ corr_raw=False) and `prescaled` (corr_banded=False, corr_scaled=False)
 kernel paths of chip_smoke.py, same weights. Then the training form: a
 forward of the template's batch of 20 windows at patch 200 in training
 mode with the loss (`1*L1+2*HEM`), and whole train steps (forward, loss,
-backward, Adam), on random frames. Prints, per stage, the wall
+backward, Adam), on random frames; both again with the VGG and GAN
+plugins (`+0.1*VGG22+0.01*GAN`, the discriminator's step included), and a
+'sharp' restore at n_sequence 5 (four neighbour streams). Prints, per
+stage, the wall
 ms per call (host clock around work ending in a device sync), the
 device-busy share (summed kernel time of the profiled calls over the wall
 time of as many unprofiled ones), that device time
@@ -77,16 +80,19 @@ def host_syncs(fn) -> Counter:
                    for w in caught if "synchroniz" in str(w.message))
 
 
-def add_train_stages(stages: dict, cfg, g) -> None:
-    """The train step at the template's batch and patch, own weights."""
+def add_train_stages(stages: dict, cfg, g, tag: str = "") -> None:
+    """The train step at the template's batch and patch, own weights, with
+    the discriminator where `cfg.loss` has a GAN term."""
     import torch
     from speinet_tpu_torch.models.speinet import SPEINet, init_weights
     from speinet_tpu_torch.training.loss import LossComputer
-    from speinet_tpu_torch.training.train_state import make_optimizer, train_step
+    from speinet_tpu_torch.training.train_state import (make_gan_state, make_optimizer,
+                                                        train_step)
 
     model = init_weights(SPEINet.from_config(cfg), seed=0).cuda()
     opt = make_optimizer(cfg, model)
-    loss = LossComputer(cfg.loss)
+    loss = LossComputer(cfg.loss, rgb_range=cfg.rgb_range)
+    gan = make_gan_state(cfg, "cuda")
     b, p = cfg.batch_size, cfg.patch_size
     x = torch.rand((b, 5, 3, p, p), generator=g, device="cuda")
     x[1::2, 3] = 0.0
@@ -94,11 +100,11 @@ def add_train_stages(stages: dict, cfg, g) -> None:
     tg = torch.Generator(device="cuda").manual_seed(1)
 
     def forward():
-        return loss(model(x, train=True, generator=tg), gt, tg)
+        return loss(model(x, train=True, generator=tg), gt, tg, gan)
 
-    stages[f"train forward + loss ({b} windows, patch {p})"] = forward
-    stages[f"train step ({b} windows, patch {p})"] = (
-        lambda: train_step(model, opt, loss, x, gt, tg))
+    stages[f"train forward + loss ({b} windows, patch {p}{tag})"] = forward
+    stages[f"train step ({b} windows, patch {p}{tag})"] = (
+        lambda: train_step(model, opt, loss, x, gt, tg, gan))
 
 
 def main() -> int:
@@ -137,7 +143,15 @@ def main() -> int:
                     rep(m[1:2]), (rep(n[0:1]), rep(n[2:3])), *map(rep, lv), r,
                     mixed if r == "mixed" else None))
     stages[f"direct forward ({b} windows)"] = lambda: model(x)
+    # n_sequence 5: the restore fuses four neighbour streams
+    five = init_weights(SPEINet.from_config(cfg.replace(n_sequence=5)), seed=0).cuda().eval()
+    m5, n5 = five.encode_window_legs(frames[:3])
+    lv5 = five.anchor_pyramid(frames[3:4])
+    stages[f"restore sharp ({b} windows, n_sequence 5)"] = lambda: five.restore_from_features(
+        rep(m5[1:2]), [rep(n5[k:k + 1]) for k in (0, 2, 0, 2)], *map(rep, lv5), "sharp")
     add_train_stages(stages, cfg, g)
+    add_train_stages(stages, cfg.replace(loss=cfg.loss + "+0.1*VGG22+0.01*GAN"), g,
+                     ", VGG22 + GAN")
     print(f"device: {torch.cuda.get_device_name(0)}")
     for name, fn in stages.items():
         fn()

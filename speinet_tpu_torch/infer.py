@@ -3,11 +3,11 @@ inference_SPEINet.py).
 
 Per video: sharp labels (from `label/<video>.npy`, or from the sharpness
 detector when the tree has no `label/` directory), border-padded sliding
-3-frame windows with the pre/sub sharp anchors and the >7-frame zero rule,
-windows restored `batch_windows` at a time, PSNR (float64 host, border
-crop 4) and MATLAB SSIM, PNGs, and the reference's `inference_log` format.
-Two engines:
-- direct (the default): each window's five frames go through
+windows of `n_sequence` frames (3 by default) with the pre/sub sharp
+anchors and the >7-frame zero rule, windows restored `batch_windows` at a
+time, PSNR (float64 host, border crop 4) and MATLAB SSIM, PNGs, and the
+reference's `inference_log` format. Two engines:
+- direct (the default): each window's frames and its two anchors go through
   `SPEINet.forward`, with per-sample routing; `--self_ensemble` averages
   the 8 flips / transposes of the input (`forward_x8`), `--chop` runs four
   overlapping quadrants as one batch (`parallel/chop.py`);
@@ -21,7 +21,8 @@ work as well as the PNG tree of the CLI.
 
     python -m speinet_tpu_torch.infer --data_path <tree> \
         [--cache_pyramids] [--self_ensemble] [--chop] \
-        [--model_path port_state_dict.pt] [--detector_pickle model.pkl]
+        [--model_path port_state_dict.pt] [--detector_pickle model.pkl] \
+        [--n_sequence 3] [--profile trace_dir]
 
 On the card the CLI computes in bfloat16 unless --compute_dtype says
 otherwise; with --device cpu it keeps the config's float32.
@@ -95,6 +96,26 @@ def forward_x8(x: torch.Tensor, fwd) -> torch.Tensor:
             y = torch.flip(y, (-1,))
         outs.append(y)
     return torch.stack(outs).mean(dim=0)
+
+
+def window_metas(padded_inputs: Sequence[str], pre_lists, sub_lists,
+                 n_seq: int) -> List[tuple]:
+    """Per window of the cached engine: (centre key, neighbour keys,
+    has_sharp, anchor key or "<ZERO>"). Both sharp frames are measured from
+    the LAST window frame (reference inference_SPEINet.py:385-388), not from
+    the centre: the pre-sharp frame decides the routing, and a sub-sharp
+    frame more than 7 frames away is replaced by zeros."""
+    metas = []
+    for w in range(len(padded_inputs) - 2 * (n_seq // 2)):
+        c_path = padded_inputs[w + n_seq // 2]
+        nb_paths = tuple(padded_inputs[w + i] for i in range(n_seq)
+                         if i != n_seq // 2)
+        ref_n = _frame_number(padded_inputs[w + n_seq - 1])
+        hs = abs(ref_n - _frame_number(padded_inputs[pre_lists[w][0]])) <= 7
+        sub_path = padded_inputs[sub_lists[w][n_seq - 1]]
+        akey = sub_path if abs(ref_n - _frame_number(sub_path)) <= 7 else "<ZERO>"
+        metas.append((c_path, nb_paths, hs, akey))
+    return metas
 
 
 class TraverseLogger:
@@ -252,10 +273,16 @@ class Inference:
         nh, nw = h - h % self.size_must_mode, w - w % self.size_must_mode
         inputs = [im[:nh, :nw] for im in inputs]
         gt = gt[:nh, :nw]
-        if abs(nums[2] - nums[3]) > 7:
-            inputs[-2] = np.zeros_like(inputs[-2])
-        if abs(nums[2] - nums[4]) > 7:
-            inputs[-1] = np.zeros_like(inputs[-1])
+        # the JAX package measures entries 3 and 4 of the stack from entry
+        # 2 whatever the window's length: the pre- and sub-sharp frames from
+        # the last window frame at n_sequence 3, three window frames at 5
+        # (so nothing is zeroed there). At n_sequence 1 it has no entry 3
+        # and fails; the port measures both from the window's one frame.
+        ref, pre, sub = (2, 3, 4) if n_seq >= 3 else (0, 1, 2)
+        if abs(nums[ref] - nums[pre]) > 7:
+            inputs[pre] = np.zeros_like(inputs[pre])
+        if abs(nums[ref] - nums[sub]) > 7:
+            inputs[sub] = np.zeros_like(inputs[sub])
         x = np.stack([im.transpose(2, 0, 1) for im in inputs]).astype(np.float32)
         x *= self.cfg.rgb_range / 255.0
         return filename, x, gt
@@ -308,19 +335,7 @@ class Inference:
             return im.transpose(2, 0, 1).astype(np.float32) * scale
 
         last_pos = {p: i for i, p in enumerate(padded_inputs)}
-        # per window: (centre, (nb0, nb1), has_sharp, anchor key); the >7
-        # zero rule is measured from the LAST window frame (reference
-        # inference_SPEINet.py:385-388), not from the centre
-        metas = []
-        for w in range(n_win):
-            c_path = padded_inputs[w + n_seq // 2]
-            nb_paths = tuple(padded_inputs[w + i] for i in range(n_seq)
-                             if i != n_seq // 2)
-            ref_n = _frame_number(padded_inputs[w + n_seq - 1])
-            hs = abs(ref_n - _frame_number(padded_inputs[pre_lists[w][0]])) <= 7
-            sub_path = padded_inputs[sub_lists[w][n_seq - 1]]
-            akey = sub_path if abs(ref_n - _frame_number(sub_path)) <= 7 else "<ZERO>"
-            metas.append((c_path, nb_paths, hs, akey))
+        metas = window_metas(padded_inputs, pre_lists, sub_lists, n_seq)
 
         decoded, feat, anchors = {}, {}, {}
 
@@ -370,8 +385,8 @@ class Inference:
             out = self._timed(
                 "restore", self.model.restore_from_features,
                 cat([feat[metas[w][0]][0] for w in wins]),
-                (cat([feat[metas[w][1][0]][1] for w in wins]),
-                 cat([feat[metas[w][1][1]][1] for w in wins])),
+                [cat([feat[metas[w][1][k]][1] for w in wins])
+                 for k in range(n_seq - 1)],
                 cat([anchors[metas[w][3]][0] for w in wins]),
                 cat([anchors[metas[w][3]][1] for w in wins]),
                 cat([anchors[metas[w][3]][2] for w in wins]), routing,
@@ -428,6 +443,21 @@ class Inference:
         self.logger.close()
 
 
+def profile_run(fn, trace_dir: str, device: torch.device):
+    """fn() under torch.profiler, host activity and, on the card, its
+    kernels; the trace goes into `trace_dir` as a TensorBoard / Chrome trace
+    (`*.pt.trace.json`), as the JAX package's --profile writes a
+    jax.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(trace_dir)):
+        return fn()
+
+
 def main(argv=None):
     import sys
 
@@ -456,6 +486,9 @@ def main(argv=None):
     p.add_argument("--cache_pyramids", action="store_true",
                    help="reuse per-frame encoder features across windows")
     p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--profile", type=str, default="",
+                   help="write a torch.profiler trace of the run into this "
+                        "directory")
     for flag, switch, what in (
             ("swin_fuse_block", "SPEINET_SWIN_FUSEBLOCK",
              "1: one kernel per Swin block (K2); 0: attention (K8) + MLP (K9)"),
@@ -493,7 +526,10 @@ def main(argv=None):
                     corr_raw=bool(args.corr_raw), corr_banded=bool(args.corr_banded),
                     corr_scaled=bool(args.corr_scaled))
     try:
-        inf.infer()
+        if args.profile:
+            profile_run(inf.infer, args.profile, inf.device)
+        else:
+            inf.infer()
     finally:
         inf.close()
 

@@ -4,9 +4,9 @@ Each wrapper dispatches on its tensor's device alone: a CPU tensor takes
 the plain PyTorch version kept beside it, a CUDA tensor launches the CUDA
 kernel built from `speinet_tpu_torch/csrc/` (or raises). `LAUNCHES` counts
 the kernel launches of each wrapper, `BACKWARD_LAUNCHES` those made in a
-backward pass. K3, K5-K7 and K10 run under autograd (their backward: K3
+backward pass. K3-K7 and K10 run under autograd (their backward: K3
 itself, and plain PyTorch for the others, as XLA code in the JAX package);
-K1, K2, K4, K8 and K9 have no backward and refuse inputs that need one.
+K1, K2, K8 and K9 have no backward and refuse inputs that need one.
 TPU kernels under speinet_tpu/ops/:
 
     K1  conv2d                  csrc/conv.cu         pallas_conv.py::conv2d_mxu

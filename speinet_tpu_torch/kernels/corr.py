@@ -20,8 +20,9 @@ package's custom VJPs (`_corr_lds_bwd`, `_corr_ld_bwd`, `_corr_bwd`,
 pallas_corr.py:310-392), XLA code there and plain PyTorch here on either
 device: torch.max's subgradient through the winning reference column, the
 reference cotangents scatter-added in float32 and cast to the operand dtype
-at the end. `idx` carries no gradient. K4 has no backward (no training path
-reaches it) and refuses inputs that need one.
+at the end. K4 runs under one too, whose backward ports `_banded_bwd`
+(pallas_corr.py:588-630) alike: the same subgradient in map space, one
+shifted gather and scatter-add per patch offset. `idx` carries no gradient.
 """
 
 from __future__ import annotations
@@ -137,14 +138,9 @@ def _check_batch(what: str, b: int) -> None:
                          f"got {b}")
 
 
-def banded_corr_argmax(lr_map: torch.Tensor, ref_map: torch.Tensor,
-                       inv_ref: torch.Tensor):
-    """lr_map [B, H, W, C], ref_map [B, Hr, Wr, C], inv_ref [B, Hr*Wr] f32
-    -> (S [B, H*W] f32, idx [B, H*W] int32 row-major over Hr x Wr)."""
-    _check_args(lr_map, ref_map, inv_ref)
-    _lib.refuse_grad("banded_corr_argmax", lr_map, ref_map, inv_ref)
-    if _lib.dispatch_device(lr_map, "banded_corr_argmax") == "cpu":
-        return banded_corr_argmax_plain(lr_map, ref_map, inv_ref)
+def _banded_launch(lr_map: torch.Tensor, ref_map: torch.Tensor,
+                   inv_ref: torch.Tensor):
+    """Launch K4 on CUDA maps."""
     dev = lr_map.device
     _lib.require_cuda_tensor(lr_map, "lr_map", torch.bfloat16, dev)
     _lib.require_cuda_tensor(ref_map, "ref_map", torch.bfloat16, dev)
@@ -170,6 +166,83 @@ def banded_corr_argmax(lr_map: torch.Tensor, ref_map: torch.Tensor,
                "banded_corr_argmax")
     _lib.LAUNCHES["banded_corr_argmax"] += 1
     return s, idx
+
+
+# the 3x3 patch offsets (dy, dx) K4's backward walks
+OFFSETS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+
+
+def banded_backward(lr_map: torch.Tensor, ref_map: torch.Tensor,
+                    inv_ref: torch.Tensor, s: torch.Tensor, idx: torch.Tensor,
+                    gs: torch.Tensor, needs=(True, True, True)):
+    """K4's VJP (`_banded_bwd`): with gw_p = g_p inv[q*_p] and q* the
+    winning reference pixel, for each offset o
+        d_lr[p + o]   += gw_p ref[q*_p + o]
+        d_ref[q*_p + o] += gw_p lr[p + o]
+    (zero where a position lies off its map), and d_inv[q*_p] += g_p S_p /
+    inv[q*_p]. All in float32; each cotangent is cast to its operand's
+    dtype once. `needs` says which of (d_lr, d_ref, d_inv) to compute."""
+    b, h, w, c = lr_map.shape
+    hr, wr = ref_map.shape[1:3]
+    idx = idx.long()
+    gs = gs.float()
+    inv_sel = torch.gather(inv_ref.float(), 1, idx)
+    gw = gs * inv_sel                                         # [B, L]
+    qr, qc = idx // wr, idx % wr
+    base = torch.arange(b, device=idx.device)[:, None] * (hr * wr)
+    ref_rows = ref_map.float().reshape(b * hr * wr, c)
+    lr_pad = F.pad(lr_map.float(), (0, 0, 1, 1, 1, 1))
+    d_lr_pad = torch.zeros_like(lr_pad) if needs[0] else None
+    d_ref = torch.zeros_like(ref_rows) if needs[1] else None
+    for dy, dx in OFFSETS:
+        vr, vc = qr + dy, qc + dx
+        ok = ((vr >= 0) & (vr < hr) & (vc >= 0) & (vc < wr)).float()
+        qo = (vr.clamp(0, hr - 1) * wr + vc.clamp(0, wr - 1) + base).reshape(-1)
+        win = (slice(None), slice(1 + dy, 1 + dy + h), slice(1 + dx, 1 + dx + w))
+        if needs[0]:
+            g_sel = ref_rows[qo].view(b, h, w, c)
+            d_lr_pad[win] += (gw * ok).view(b, h, w, 1) * g_sel
+        if needs[1]:
+            f_o = lr_pad[win].reshape(b * h * w, c)
+            d_ref.index_add_(0, qo, (gw * ok).reshape(-1, 1) * f_o)
+    d_lr = d_ref_map = d_inv = None
+    if needs[0]:
+        d_lr = d_lr_pad[:, 1:-1, 1:-1].to(lr_map.dtype)
+    if needs[1]:
+        d_ref_map = d_ref.view(b, hr, wr, c).to(ref_map.dtype)
+    if needs[2]:
+        d_inv = torch.zeros(inv_ref.shape, dtype=torch.float32, device=inv_ref.device)
+        d_inv.scatter_add_(1, idx, s / torch.clamp(inv_sel, min=1e-30) * gs)
+        d_inv = d_inv.to(inv_ref.dtype)
+    return d_lr, d_ref_map, d_inv
+
+
+class BandedCorr(torch.autograd.Function):
+    """K4: S_p = inv_q* <patch(ref, q*), patch(lr, p)>; forward K4 on the
+    card, the plain version on the CPU; backward `banded_backward` on both."""
+
+    @staticmethod
+    def forward(ctx, lr_map, ref_map, inv_ref):
+        if lr_map.device.type == "cpu":
+            s, idx = banded_corr_argmax_plain(lr_map, ref_map, inv_ref)
+        else:
+            s, idx = _banded_launch(lr_map, ref_map, inv_ref)
+        ctx.save_for_backward(lr_map, ref_map, inv_ref, s, idx)
+        ctx.mark_non_differentiable(idx)
+        return s, idx
+
+    @staticmethod
+    def backward(ctx, gs, _):
+        return banded_backward(*ctx.saved_tensors, gs, ctx.needs_input_grad)
+
+
+def banded_corr_argmax(lr_map: torch.Tensor, ref_map: torch.Tensor,
+                       inv_ref: torch.Tensor):
+    """lr_map [B, H, W, C], ref_map [B, Hr, Wr, C], inv_ref [B, Hr*Wr] f32
+    -> (S [B, H*W] f32, idx [B, H*W] int32 row-major over Hr x Wr)."""
+    _check_args(lr_map, ref_map, inv_ref)
+    _lib.dispatch_device(lr_map, "banded_corr_argmax")
+    return BandedCorr.apply(lr_map, ref_map, inv_ref)
 
 
 def _check_unfold_args(what: str, lr: torch.Tensor, ref: torch.Tensor,

@@ -9,7 +9,8 @@ Runs on the card (`--device cuda`, the default; it raises without one)
 in bfloat16 with float32 parameters unless `--compute_dtype` is given, which
 the card refuses unless it is bfloat16. `--device cpu` trains the plain
 float32 path on the CPU. Every other flag is the config's
-(`speinet_tpu_torch/config.py`).
+(`speinet_tpu_torch/config.py`), `--n_sequence` and a `--loss` spec with
+VGG or GAN terms (`training/loss.py`) among them.
 """
 
 from __future__ import annotations

@@ -3,16 +3,19 @@
 
 Input frames are floats in [0, rgb_range]; feature maps are NHWC in the
 compute dtype; parameters are float32 and are cast at use.
-`forward(x)` restores the centre frame of [B, 5, 3, H, W] windows with
+`forward(x)` restores the centre frame of [B, n_sequence + 2, 3, H, W]
+windows (the window's frames, then the pre- and sub-sharp frames) with
 per-sample routing, as `SPEINet.__call__` does; `forward(x, train=True,
 generator=g)` is its training form (autograd on, no K1 / K2 / K8 / K9,
 batch-statistics BatchNorm, DropPath drawn from `g`), as `__call__(x,
-train=True)` is. Three more methods, inference only, split that forward so
-a video engine can reuse per-frame work across windows:
+train=True)` is. Three more methods split that forward so a video engine
+can reuse per-frame work across windows:
     encode_window_legs   enc(f) + enc(RL5(f)) and enc(f) + enc(RL1(f))
     anchor_pyramid       the sharp anchor's encoder pyramid
-    restore_from_features  Swin fusion of both neighbours, fusion conv,
-                         search + transfer, decoder
+    restore_from_features  Swin fusion of the neighbours (a residual Swin
+                         pass of the centre alone where there are none),
+                         fusion conv, search + transfer, decoder; with
+                         `train` it is differentiable, K4 included
 Parameter names follow the original PyTorch model (recons_net.*, swin.*,
 conv_lv1..3, fusion, search*, SelfTransfer.*), including the defined but
 unused `search23`.
@@ -96,10 +99,10 @@ class SPEINet(nn.Module):
                  swin_fuse_block: bool = True, corr_raw: bool = True,
                  corr_banded: bool = True, corr_scaled: bool = True):
         super().__init__()
-        if n_sequence != 3:
-            raise NotImplementedError("the port takes 3-frame windows "
-                                      "(n_sequence 3)")
+        if n_sequence < 1:
+            raise ValueError(f"n_sequence {n_sequence}: a window has a frame")
         f = n_feat
+        self.n_sequence = n_sequence
         self.dtype = dtype
         self.corr_paths = dict(corr_raw=corr_raw, corr_banded=corr_banded,
                                corr_scaled=corr_scaled)
@@ -110,7 +113,7 @@ class SPEINet(nn.Module):
         self.conv_lv1 = nn.Conv2d(2 * f, f, 1)
         self.conv_lv2 = nn.Conv2d(4 * f, 2 * f, 1)
         self.conv_lv3 = nn.Conv2d(8 * f, 4 * f, 1)
-        self.fusion = nn.Conv2d(12 * f, 4 * f, 1)
+        self.fusion = nn.Conv2d(4 * f * n_sequence, 4 * f, 1)   # centre + neighbours
         self.search3 = nn.Conv2d(2 * f, 2 * f, 3, padding=1)
         self.search2 = nn.Conv2d(4 * f, 2 * f, 1)
         self.search1 = nn.Conv2d(4 * f, 2 * f, 1)
@@ -144,7 +147,12 @@ class SPEINet(nn.Module):
 
     def _fuse(self, f_mid: torch.Tensor, neighbor_feats, train: bool = False,
               generator: torch.Generator | None = None) -> torch.Tensor:
-        """Both neighbours through one batched swin call (same K/V stream)."""
+        """Every neighbour through one batched swin call (same K/V stream),
+        concatenated after the centre; with none (n_sequence 1) the centre's
+        own Swin pass added to it (speinet.py:87-89)."""
+        if not neighbor_feats:
+            return f_mid.to(self.dtype) + self.swin(f_mid, f_mid, self.dtype, train,
+                                                    generator)
         b = f_mid.shape[0]
         x_in = torch.cat([f_mid] * len(neighbor_feats), dim=0)
         y_in = torch.cat(list(neighbor_feats), dim=0)
@@ -211,15 +219,23 @@ class SPEINet(nn.Module):
         nhwc = frames.permute(0, 2, 3, 1).to(self.dtype).contiguous()
         return self.recons_net.encode_pyramid(nhwc, self.dtype)
 
-    @torch.no_grad()
     def restore_from_features(self, f_mid, neighbor_feats, sharp_lv1, sharp_lv2,
                               sharp_lv3, routing: str,
-                              has_sharp: torch.Tensor | None = None) -> torch.Tensor:
+                              has_sharp: torch.Tensor | None = None,
+                              train: bool = False,
+                              generator: torch.Generator | None = None
+                              ) -> torch.Tensor:
         """Fusion + transfer + decode for a batch whose routing the host
         knows ('sharp' or 'self'), or per sample ('mixed', with `has_sharp`
-        [B] bool). Returns [B, 3, H, W] float32."""
+        [B] bool), from the centre's features and any number of neighbour
+        streams. Returns [B, 3, H, W] float32. Without autograd unless
+        `train`, which takes the training forms as `forward` does."""
+        if not train:
+            with torch.no_grad():
+                return self._restore(f_mid, neighbor_feats, sharp_lv1, sharp_lv2,
+                                     sharp_lv3, routing, has_sharp)
         return self._restore(f_mid, neighbor_feats, sharp_lv1, sharp_lv2,
-                             sharp_lv3, routing, has_sharp)
+                             sharp_lv3, routing, has_sharp, True, generator)
 
     def _restore(self, f_mid, neighbor_feats, sharp_lv1, sharp_lv2, sharp_lv3,
                  routing: str, has_sharp: torch.Tensor | None = None,
@@ -235,12 +251,13 @@ class SPEINet(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        """x [B, 5, 3, H, W]: frames t-1, t, t+1, the pre-sharp and the
-        sub-sharp frame -> the restored centre frame [B, 3, H, W] float32
-        (parity: speinet.py:215-274). A sample routes to the sharp search
-        when frame 3 is not all zero, while the sharp pyramid encodes frame
-        4: the reference's quirk, kept. RL5 of the centre frame, RL1 of both
-        neighbours and all seven encoder legs run as batched calls.
+        """x [B, n_sequence + 2, 3, H, W]: the window's frames, the pre-sharp
+        and the sub-sharp frame -> the restored centre frame [B, 3, H, W]
+        float32 (parity: speinet.py:215-274). A sample routes to the sharp
+        search when frame 3 is not all zero, while the sharp pyramid encodes
+        the sub-sharp frame: the reference's quirk, kept. RL5 of the centre
+        frame, RL1 of every neighbour and all 3 + 2 (n_sequence - 1) encoder
+        legs run as batched calls.
 
         Inference runs without autograd. With `train` autograd is on, the
         convs and Swin blocks take their training forms, the BatchNorm
@@ -254,22 +271,33 @@ class SPEINet(nn.Module):
 
     def _forward(self, x: torch.Tensor, train: bool,
                  generator: torch.Generator | None) -> torch.Tensor:
-        dt = self.dtype
+        dt, ns = self.dtype, self.n_sequence
         b = x.shape[0]
-        has_sharp = ~(x[:, 3] == 0).flatten(1).all(dim=1)
+        # the JAX package reads x[:, 3]; XLA clamps that static index to the
+        # last frame where the window is shorter (n_sequence 1: the
+        # sub-sharp frame), which torch would refuse
+        flag = x[:, min(3, ns + 1)]
+        has_sharp = ~(flag == 0).flatten(1).all(dim=1)
         nhwc = x.permute(0, 1, 3, 4, 2)
-        prev, mid, nxt = (nhwc[:, i].to(dt) for i in range(3))
-        sharp = nhwc[:, 4].to(dt)
+        mid_i = ns // 2
+        mid = nhwc[:, mid_i].to(dt)
+        neighbors = [nhwc[:, i].to(dt) for i in range(ns) if i != mid_i]
+        sharp = nhwc[:, ns + 1].to(dt)
         kernel = box_kernel(5, device=x.device)
         rl = lambda t, n: richardson_lucy(t.permute(0, 3, 1, 2).float(), kernel, n,
                                           0.01, box_size=5).permute(0, 2, 3, 1).to(dt)
-        deb_mid = rl(mid, 5)
-        deb_nb = rl(torch.cat([prev, nxt], dim=0), 1)
-        enc_in = torch.cat([sharp, mid, deb_mid, prev, deb_nb[:b], nxt, deb_nb[b:]],
-                           dim=0).contiguous()
-        lv1, lv2, lv3 = self.recons_net.encode_pyramid(enc_in, dt, train)
+        # legs in the JAX order: sharp, mid, RL5(mid), then (n, RL1(n)) for
+        # each neighbour, whose RL runs as one call
+        legs = [sharp, mid, rl(mid, 5)]
+        if neighbors:
+            deb_nb = rl(torch.cat(neighbors, dim=0), 1)
+            for k, nb in enumerate(neighbors):
+                legs += [nb, deb_nb[k * b:(k + 1) * b]]
+        lv1, lv2, lv3 = self.recons_net.encode_pyramid(
+            torch.cat(legs, dim=0).contiguous(), dt, train)
         leg = lambda k: lv3[k * b:(k + 1) * b]
         f_mid = leg(1) + leg(2)
-        neighbor_feats = (leg(3) + leg(4), leg(5) + leg(6))
+        neighbor_feats = [leg(3 + 2 * k) + leg(4 + 2 * k)
+                          for k in range(len(neighbors))]
         return self._restore(f_mid, neighbor_feats, lv1[:b], lv2[:b], lv3[:b],
                              "mixed", has_sharp, train, generator)

@@ -9,8 +9,12 @@ from a uniform draw that `hem_mask` takes as an argument; `LossComputer`
 draws it from the generator it is given, on that generator's device. The
 mask carries no gradient.
 
-The VGG and GAN plugins (`training/perceptual.py`, `adversarial.py` in the
-JAX package) are not ported yet: specs naming them raise.
+Plugins (Loss/__init__.py:31-36): a name containing 'VGG' is the perceptual
+loss (`training/perceptual.py`) at the relu layer its digits name (22 by
+default), a name containing 'GAN' the generator's adversarial loss
+(`training/adversarial.py`), which needs the discriminator state; a GAN
+spec adds a 'DIS' column for the discriminator's own loss, which the train
+step fills (Loss/__init__.py:46-47).
 """
 
 from __future__ import annotations
@@ -18,6 +22,9 @@ from __future__ import annotations
 from typing import Dict, List, Tuple
 
 import torch
+
+from speinet_tpu_torch.training.adversarial import generator_loss
+from speinet_tpu_torch.training.perceptual import vgg_loss
 
 
 def parse_loss_spec(spec: str) -> List[Tuple[float, str]]:
@@ -67,25 +74,27 @@ def hem_loss(x: torch.Tensor, y: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
 class LossComputer:
     """Weighted multi-loss with per-component logging: `total, components =
-    computer(out, gt, generator)`; `components` maps each loss name to its
-    weighted value, plus 'Total' when there is more than one
-    (Loss/__init__.py:48-49, 69-84)."""
+    computer(out, gt, generator, gan)`; `components` maps each loss name to
+    its weighted value, plus 'Total' when there is more than one
+    (Loss/__init__.py:48-49, 69-84). `names` are the log's columns, 'DIS'
+    included for a GAN spec."""
 
-    def __init__(self, spec: str):
+    def __init__(self, spec: str, rgb_range: float = 255.0):
         self.spec = parse_loss_spec(spec)
+        self.rgb_range = rgb_range
         for _, name in self.spec:
-            if "VGG" in name or "GAN" in name:
-                raise NotImplementedError(
-                    f"loss [{name}]: the perceptual (VGG) and adversarial (GAN) "
-                    f"plugins come with a later slice of the port")
-            if name not in ("L1", "MSE", "HEM"):
+            if name not in ("L1", "MSE", "HEM") and "VGG" not in name \
+                    and "GAN" not in name:
                 raise NotImplementedError(f"Loss type [{name}] is not found")
+        self.has_gan = any("GAN" in name for _, name in self.spec)
         self.names = [name for _, name in self.spec]
+        if self.has_gan:
+            self.names = self.names + ["DIS"]
         if len(self.spec) > 1:
             self.names = self.names + ["Total"]
 
     def __call__(self, out: torch.Tensor, gt: torch.Tensor,
-                 generator: torch.Generator | None = None
+                 generator: torch.Generator | None = None, gan=None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         comps: Dict[str, torch.Tensor] = {}
         total = 0.0
@@ -94,11 +103,20 @@ class LossComputer:
                 val = l1_loss(out, gt)
             elif name == "MSE":
                 val = mse_loss(out, gt)
-            else:
+            elif name == "HEM":
                 b, _, h, w = out.shape
                 dev = generator.device if generator is not None else out.device
                 u = torch.rand((b, h * w), generator=generator, device=dev)
                 val = hem_loss(out, gt, u.to(out.device))
+            elif "VGG" in name:
+                digits = "".join(ch for ch in name if ch.isdigit()) or "22"
+                val = vgg_loss(out, gt, conv_index=digits, rgb_range=self.rgb_range)
+            else:
+                if gan is None:
+                    raise ValueError(
+                        f"loss spec '{name}' needs the discriminator state: pass "
+                        f"gan= (train_state.make_gan_state builds it)")
+                val = generator_loss(gan, out, rgb_range=self.rgb_range)
             comps[name] = weight * val
             total = total + comps[name]
         if len(self.spec) > 1:

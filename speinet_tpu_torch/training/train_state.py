@@ -8,7 +8,13 @@
   gradient before the moments, which is optax's `add_decayed_weights` ahead
   of `scale_by_adam` in the JAX package. The trainer sets the learning
   rate on the param group at each epoch.
-- `train_step`: forward in training form, loss, backward, Adam step.
+- `make_gan_state`: the discriminator and its Adam state where the loss
+  spec has a GAN term (`create_train_state`, train_state.py:41-51), drawn
+  from a generator seeded seed + 7 where the JAX package folds 7 into its
+  key.
+- `train_step`: forward in training form, loss, backward, Adam step; with
+  a discriminator, then its own step on the same batch and the detached
+  output at the generator's learning rate.
 - `recalibrate_batch_stats`: the BatchNorm running statistics replaced by
   the average of per-batch statistics under the current weights (:138-163).
 - `eval_step`: the inference forward.
@@ -23,7 +29,9 @@ import torch.nn as nn
 
 from speinet_tpu_torch.config import Config
 from speinet_tpu_torch.models.blocks import BN_MOMENTUM
-from speinet_tpu_torch.training.loss import LossComputer
+from speinet_tpu_torch.training.adversarial import (GanState, discriminator_step,
+                                                    init_gan_state)
+from speinet_tpu_torch.training.loss import LossComputer, parse_loss_spec
 
 
 def lr_for_epoch(cfg: Config, epoch: int) -> float:
@@ -42,19 +50,33 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
+def make_gan_state(cfg: Config, device="cpu") -> GanState | None:
+    """The discriminator state a GAN loss spec needs, else None."""
+    if not any("GAN" in name for _, name in parse_loss_spec(cfg.loss)):
+        return None
+    return init_gan_state(torch.Generator().manual_seed(cfg.seed + 7), device)
+
+
 def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                loss_computer: LossComputer, inp: torch.Tensor, gt: torch.Tensor,
-               generator: torch.Generator | None = None
+               generator: torch.Generator | None = None,
+               gan: GanState | None = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One step on inp [B, 5, 3, H, W] against gt [B, 3, H, W]; DropPath
-    and HEM draw from `generator`. Returns the detached loss and its
-    components, left on the device. The gradients stay in `.grad`."""
+    """One step on inp [B, n_sequence + 2, 3, H, W] against gt [B, 3, H, W];
+    DropPath and HEM draw from `generator`. With `gan` (a GAN spec), D's
+    step follows the model's, as in `make_train_step`, and its loss is the
+    'DIS' component. Returns the detached loss and its components, left on
+    the device. The model's gradients stay in `.grad`."""
     optimizer.zero_grad(set_to_none=True)
     out = model(inp, train=True, generator=generator)
-    total, comps = loss_computer(out, gt, generator)
+    total, comps = loss_computer(out, gt, generator, gan)
     total.backward()
     optimizer.step()
-    return total.detach(), {k: v.detach() for k, v in comps.items()}
+    comps = {k: v.detach() for k, v in comps.items()}
+    if loss_computer.has_gan:
+        comps["DIS"] = discriminator_step(gan, out, gt, optimizer.param_groups[0]["lr"],
+                                          loss_computer.rgb_range)
+    return total.detach(), comps
 
 
 def _bn_layers(model: nn.Module) -> List[nn.BatchNorm2d]:

@@ -11,7 +11,9 @@ terminate(): test_only short-circuit, or epoch >= epochs
 (trainer/trainer.py:38-44). The epoch counter resumes from the metric log.
 
 On the card the model computes in bfloat16 with float32 parameters;
-DropPath and HEM draw from one generator on the model's device.
+DropPath and HEM draw from one generator on the model's device. A loss
+spec with a GAN term trains a discriminator beside the model (its step
+after each of the model's, its loss logged as DIS) and checkpoints it.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from speinet_tpu_torch.data.loader import prefetch_to_device, to_device
 from speinet_tpu_torch.ops.metrics import postprocess_uint8, psnr_shave
 from speinet_tpu_torch.training.loss import LossComputer
 from speinet_tpu_torch.training.train_state import (eval_step, lr_for_epoch,
-                                                    make_optimizer,
+                                                    make_gan_state, make_optimizer,
                                                     recalibrate_batch_stats,
                                                     set_lr, train_step)
 from speinet_tpu_torch.utils.checkpoint import CheckpointManager
@@ -47,15 +49,18 @@ class Trainer:
         self.ckp = logger
         self.model = model.to(self.device)
         self.optimizer = make_optimizer(cfg, self.model)
-        self.loss = LossComputer(cfg.loss)
+        self.loss = LossComputer(cfg.loss, rgb_range=cfg.rgb_range)
+        self.gan = make_gan_state(cfg, self.device)
         self.ckpt = CheckpointManager(f"{logger.dir}/model",
                                       save_middle=cfg.save_middle_models)
         self.step = 0
         restored = None
         if cfg.resume or cfg.load != ".":
-            restored = self.ckpt.restore(self.model, self.optimizer, "model_latest")
+            restored = self.ckpt.restore(self.model, self.optimizer, "model_latest",
+                                         self.gan)
         elif cfg.test_only:
-            restored = self.ckpt.restore(self.model, self.optimizer, "model_best")
+            restored = self.ckpt.restore(self.model, self.optimizer, "model_best",
+                                         self.gan)
         if restored is not None:
             self.step = restored
             self.ckp.write_log(f"Restored checkpoint at step {self.step}")
@@ -101,7 +106,7 @@ class Trainer:
             inputs, gts = sample[0], sample[1]   # 5-tuples carry blur maps
             gt_center = gts[:, cfg.n_sequence // 2]
             total, comps = train_step(self.model, self.optimizer, self.loss, inputs,
-                                      gt_center, self.generator)
+                                      gt_center, self.generator, self.gan)
             self.step += 1
             if run_total is None:
                 run_total, run_comps = total, dict(comps)
@@ -154,5 +159,5 @@ class Trainer:
             f"(Best: {psnr_log[best_idx]:.3f} @epoch {best_idx + 1})")
         if not cfg.test_only:
             self.ckpt.save(self.model, self.optimizer, self.step, self.epoch,
-                           is_best=(best_idx + 1 == self.epoch))
+                           is_best=(best_idx + 1 == self.epoch), gan=self.gan)
             self.ckp.save_metrics()

@@ -14,7 +14,11 @@ are unrolled as `block{i}`).
 
 The flax model never calls `search23` (speinet.py:113 defines it for
 parity), so its tree has no such leaves; the port keeps the layer, and it
-is filled with zeros here.
+is filled with zeros here. Every window length converts alike: the fusion
+conv's input width, 4 n_feat n_sequence, comes with its kernel.
+
+`discriminator_from_flax` converts the GAN plugin's discriminator
+(`training/adversarial.py`: flax `Conv_{i}` -> `convs.{i}`).
 """
 
 from __future__ import annotations
@@ -121,6 +125,23 @@ def _swin(sd, p, depths) -> None:
                 _swin_block(sd, prefix, lp[f"block{i}"], None)
 
 
+def flax_model_shape(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The SPEINet configuration a flax tree was built with, read off its
+    shapes: n_feat, n_sequence (from the fusion conv's input width,
+    4 n_feat n_sequence), embed_dim, depths and n_resblock."""
+    n_feat = np.shape(params["conv_lv1"]["kernel"])[3]
+    depths = []
+    for li in range(sum(k.startswith("layer") for k in params["swin"])):
+        lp = params["swin"][f"layer{li}"]
+        depths.append(2 * np.shape(lp["pairs"]["block_w"]["norm1"]["scale"])[0]
+                      if "pairs" in lp else sum(k.startswith("block") for k in lp))
+    return dict(n_feat=int(n_feat),
+                n_sequence=int(np.shape(params["fusion"]["kernel"])[2] // (4 * n_feat)),
+                embed_dim=int(np.shape(params["swin"]["conv_first"]["kernel"])[3]),
+                depths=[int(d) for d in depths],
+                n_resblock=len(params["recons_net"]["in_res"]))
+
+
 def from_flax_params(params: Dict[str, Any], batch_stats: Dict[str, Any],
                      depths: Sequence[int] = (6, 6, 6, 6, 6, 6),
                      n_resblock: int = 3) -> Dict[str, torch.Tensor]:
@@ -136,4 +157,13 @@ def from_flax_params(params: Dict[str, Any], batch_stats: Dict[str, Any],
     sd["search23.bias"] = torch.zeros_like(sd["search13.bias"])
     _put(sd, "SelfTransfer.search1", _conv(params["transfer"]["self_search1"]))
     _put(sd, "SelfTransfer.search2", _conv(params["transfer"]["self_search2"]))
+    return sd
+
+
+def discriminator_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's discriminator params ({'Conv_0': ..., 'Conv_6': ...},
+    `TrainState.gan['params']`) as the port Discriminator's state_dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(len(params)):
+        _put(sd, f"convs.{i}", _conv(params[f"Conv_{i}"]))
     return sd

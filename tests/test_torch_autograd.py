@@ -1,7 +1,8 @@
 """The port's training pieces against speinet_tpu's, on the CPU.
 
-- The backward of every kernel on the training path, through its plain
-  version: K3 against `jax.vjp` of `roll2d`, K5 / K6 / K7 against the
+- The backward of every kernel with one, through its plain version: K3
+  against `jax.vjp` of `roll2d`, K4 against `banded_corr_argmax`'s custom
+  VJP in both routings, K5 / K6 / K7 against the
   custom VJPs of the three `correlation_argmax_pallas*`, K10 against
   `take_along_axis`'s, and the whole gather-fold; float32, rtol / atol
   1e-5. Pallas runs in interpret mode. The correlation inputs have top-1 /
@@ -12,8 +13,8 @@
   forward and input gradients, against the flax modules at rtol / atol
   1e-4.
 - HEM's mask on JAX's own uniform draw, the StepLR rule, torch Adam against
-  the optax chain, and the wrappers without a backward refusing to run
-  under autograd.
+  the optax chain, and the wrappers without a backward (K1, K2, K8, K9)
+  refusing to run under autograd.
 """
 
 import copy
@@ -145,6 +146,47 @@ def test_corr_vjp_matches_jax(interpret, mode):  # noqa: F811
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), **TOL)
 
 
+# --- K4 banded correlation ----------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(5, 6), (6, 9)])
+@pytest.mark.parametrize("routing", ["sharp", "self"])
+def test_banded_corr_vjp_matches_jax(interpret, routing, shape):  # noqa: F811
+    """d lr, d ref and d inv of S's cotangent through K4's plain forward and
+    `banded_backward`, against `jax.vjp` of `banded_corr_argmax` (Pallas in
+    interpret mode, its custom VJP `_banded_bwd`). 'sharp' searches a
+    second map; 'self' the query map transposed and flipped, as
+    `transfer` builds it, so both cotangents reach the one map."""
+    import speinet_tpu.ops.pallas_corr as pc
+
+    rng = np.random.default_rng(11 + shape[1])
+    b, c = 2, 8
+    h, w = shape
+    f = rng.standard_normal((b, h, w, c)).astype(np.float32)
+    g = rng.standard_normal((b, h, w, c)).astype(np.float32)
+    inv = (1.0 / (1.0 + rng.random((b, h * w)))).astype(np.float32)
+    if routing == "sharp":
+        args = (f, g, inv)
+        j_fn = pc.banded_corr_argmax
+        fn = kernels.banded_corr_argmax
+    else:
+        args = (f, inv)
+        j_fn = lambda a, i: pc.banded_corr_argmax(
+            a, jnp.flip(a.transpose(0, 2, 1, 3), 1), i)
+        fn = lambda a, i: kernels.banded_corr_argmax(
+            a, torch.flip(a.transpose(1, 2), dims=(1,)).contiguous(), i)
+    (s, idx), vjp = jax.vjp(j_fn, *map(jnp.asarray, args))
+    gs = _ct(np.asarray(s))
+    want = vjp((jnp.asarray(gs), _no_ct(idx)))
+    ts = [_t(a, grad=True) for a in args]
+    s_t, idx_t = fn(*ts)
+    np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx))
+    np.testing.assert_allclose(s_t.detach().numpy(), np.asarray(s), **TOL)
+    assert not idx_t.requires_grad
+    s_t.backward(_t(gs))
+    for t, wnt in zip(ts, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(wnt), **TOL)
+
+
 # --- K10 row_gather and the gather-fold ----------------------------------------
 
 def test_row_gather_vjp_matches_take_along_axis():
@@ -271,7 +313,8 @@ def test_drop_path_masks():
 def test_hem_takes_the_jax_draw():
     """Fed the uniform draw JAX makes from its key, hem_mask gives the same
     mask (top half of the residual, exactly 10% random) and HEM the same
-    loss; VGG and GAN specs raise."""
+    loss; an unknown loss type raises, and a GAN spec raises without the
+    discriminator state (the plugins: tests/test_torch_loss_plugins.py)."""
     rng = np.random.default_rng(6)
     x = rng.random((2, 3, 10, 12)).astype(np.float32)
     y = rng.random((2, 3, 10, 12)).astype(np.float32)
@@ -288,9 +331,10 @@ def test_hem_takes_the_jax_draw():
     assert lc.names == ["L1", "HEM", "Total"]
     total, comps = lc(_t(x), _t(y), torch.Generator().manual_seed(0))
     assert torch.allclose(total, comps["L1"] + comps["HEM"])
-    for spec in ("1*VGG54", "1*L1+0.1*GAN"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            LossComputer(spec)
+    with pytest.raises(NotImplementedError, match="not found"):
+        LossComputer("1*L1+1*SSIM")
+    with pytest.raises(ValueError, match="discriminator state"):
+        LossComputer("1*L1+0.1*GAN")(_t(x), _t(y))
 
 
 def test_lr_for_epoch_matches_jax():
@@ -338,11 +382,9 @@ def _no_backward_calls():
         (c,), (c,), (2 * c, c), (2 * c,), (c, c), (c,), (c, c), (c,), (4, 25, 25),
         (c,), (c,), (hid, c), (hid,), (c, hid), (c,))])
     w, b = torch.rand((3, 3, 32, 16), generator=g), torch.rand((16,), generator=g)
-    inv = torch.rand((1, 100), generator=g)
     return {
         "conv2d": (lambda t: kernels.conv2d(t, w, b), x),
         "swin_block": (lambda t: kernels.swin_block(t, t, wts, 5, 0, 0, 0, 4), x),
-        "banded_corr_argmax": (lambda t: kernels.banded_corr_argmax(t, t, inv), x),
         "window_cross_attention": (
             lambda t: kernels.window_cross_attention(t, t, wts, 5, 0, 0, 0, 4), x),
         "ln_mlp": (lambda t: kernels.ln_mlp(t, wts), x.reshape(1, 100, 32)),

@@ -566,3 +566,40 @@ def test_row_gather_backward_kernel(gen):
     kernels.row_gather(cpu, idx.cpu()).backward(g.cpu())
     tol = 2.0 ** -8 * cpu.grad.float().abs().max().item()
     assert (card.grad.cpu().float() - cpu.grad.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("routing", ["sharp", "self"])
+def test_banded_corr_backward_kernel(gen, routing):
+    """K4 under autograd on the card (the forward launches K4; the backward,
+    `banded_backward`, runs on the card) against the CPU's plain forward and
+    the same backward on the same bf16 maps. The cotangent is zeroed where
+    the two argmaxes differ (a near tie may flip under another summation
+    order), so both backwards see the same winners. d lr sums 9 gathered
+    products in one order on both devices; d ref is an f32 scatter-add in
+    another order, rounded to bf16, and d inv carries the card's S: each
+    within one bf16 step of its largest element."""
+    f = _bf16((2, 13, 22, 64), gen)
+    g = _bf16((2, 13, 22, 64), gen)
+    inv = 0.5 + torch.rand((2, 13 * 22), generator=gen, device="cuda")
+    gs = torch.randn((2, 13 * 22), generator=gen, device="cuda")
+
+    def run(f_, g_, inv_, gs_):
+        leaves = _leaves(f_, g_, inv_)
+        ref = leaves[1] if routing == "sharp" else torch.flip(
+            leaves[0].transpose(1, 2), dims=(1,)).contiguous()
+        s, idx = kernels.banded_corr_argmax(leaves[0], ref, leaves[2])
+        return s, idx, leaves, gs_
+
+    kernels.reset_launches()
+    s, idx, card, _ = run(f, g, inv, gs)
+    assert kernels.LAUNCHES["banded_corr_argmax"] == 1
+    s_c, idx_c, cpu, _ = run(f.cpu(), g.cpu(), inv.cpu(), gs.cpu())
+    agree = idx.cpu() == idx_c
+    assert agree.float().mean() > 0.99
+    s.backward(gs * agree.cuda())
+    s_c.backward(gs.cpu() * agree)
+    assert kernels.LAUNCHES["banded_corr_argmax"] == 1     # the backward is plain
+    pairs = list(zip(card, cpu))[: 2 if routing == "sharp" else 1] + [(card[2], cpu[2])]
+    for a, c in pairs:
+        tol = 2.0 ** -8 * c.grad.float().abs().max().item()
+        assert (a.grad.cpu().float() - c.grad.float()).abs().max().item() <= tol

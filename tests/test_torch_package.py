@@ -32,19 +32,31 @@ def test_fresh_import_leaves_jax_out():
                    cwd=PKG.parent, timeout=120)
 
 
+def _import_roots(path: pathlib.Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
 @pytest.mark.parametrize("path", MODULES, ids=lambda p: str(p.relative_to(PKG)))
 def test_no_jax_or_speinet_tpu_import(path):
-    tree = ast.parse(path.read_text())
-    for node in ast.walk(tree):
-        names = []
-        if isinstance(node, ast.Import):
-            names = [a.name for a in node.names]
-        elif isinstance(node, ast.ImportFrom) and node.module:
-            names = [node.module]
-        for n in names:
-            root = n.split(".")[0]
-            assert root not in ("jax", "jaxlib", "flax", "optax", "speinet_tpu"), \
-                f"{path.name} imports {n}"
+    bad = _import_roots(path) & {"jax", "jaxlib", "flax", "optax", "orbax",
+                                 "speinet_tpu"}
+    assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize("script,allowed", [("chip_smoke.py", set()),
+                                            ("orbax_to_torch.py", {"orbax"})])
+def test_root_scripts_import_nothing_of_speinet_tpu(script, allowed):
+    """The chip script imports nothing of JAX; the orbax converter only
+    orbax (which brings JAX), never the JAX package."""
+    bad = _import_roots(PKG.parent / script) & (
+        {"jax", "jaxlib", "flax", "optax", "orbax", "speinet_tpu"} - allowed)
+    assert not bad, f"{script} imports {bad}"
 
 
 def _cfg():
