@@ -60,7 +60,16 @@ toolkit. In order it:
    no planted fault) with the VGG and GAN plugins (`train_plugins`, loss
    1*L1+2*HEM+0.1*VGG22+0.01*GAN): their loss columns finite, the
    discriminator's weights moved, and a checkpoint giving back the
-   discriminator and its Adam state exactly;
+   discriminator and its Adam state exactly; then `swint`: the same epoch
+   and test() with the SWINT template (its steps must launch K3 forward
+   and backward and no search kernel, its test() K1, K2 and K3) and its
+   card-vs-CPU step, which must reject the planted K3 fault too;
+   `swint_cpu`: SWINT's forward on the card against the CPU at 80x80 at
+   n_sequence 3, 1 and with swin_fuse_block=False (K8 + K9 launched);
+   `detector_train`: the detector's features of GoProRS re-blurred
+   synthetic videos on both devices, and the logistic model, a tree and a
+   forest fitted on each side's, held to each other; `ops`: the smoothing
+   and utility ops on a 720p frame, card against CPU;
 6. `k4_grad`: K4 under autograd at the cached restore's shape, 'sharp' and
    'self', and one restore_from_features(train=True) backward at 80x80,
    their K4 launches counted; the 720p gradients against autograd of an
@@ -969,28 +978,39 @@ def memory_data(cfg, train_root: str, test_root: str, store: dict):
                                   n_threads=cfg.n_threads))
 
 
-# kernels the train step must launch, and those it must not (training runs
-# its convs and Swin blocks as PyTorch ops and routes 'mixed' through K5)
-TRAIN_LAUNCHES = ["roll2d", "correlation_argmax_lds", "row_gather"]
-TRAIN_SHUNS = ["conv2d", "swin_block", "banded_corr_argmax", "correlation_argmax_ld",
-               "correlation_argmax", "window_cross_attention", "ln_mlp"]
+# per model, the kernels its train step must launch, and those it must not
+# (training runs its convs and Swin blocks as PyTorch ops; SPEINet routes
+# 'mixed' through K5 and gathers through K10, SWINT has no search)
+TRAIN_LAUNCHES = {"SPEINet": ["roll2d", "correlation_argmax_lds", "row_gather"],
+                  "SWINT": ["roll2d"]}
+_NO_BACKWARD = ["conv2d", "swin_block", "banded_corr_argmax", "correlation_argmax_ld",
+                "correlation_argmax", "window_cross_attention", "ln_mlp"]
+TRAIN_SHUNS = {"SPEINet": _NO_BACKWARD,
+               "SWINT": _NO_BACKWARD + ["correlation_argmax_lds", "row_gather"]}
+# the kernels Trainer.test()'s inference forward must launch
+TEST_LAUNCHES = {"SPEINet": ["conv2d", "swin_block", "roll2d", "correlation_argmax_lds",
+                             "row_gather"],
+                 "SWINT": ["conv2d", "swin_block", "roll2d"]}
 
 
 def run_training(cfg, workdir: str):
-    """The training main path: `Trainer.train()` for one epoch at full width
-    on a synthetic in-memory tree (2 videos of 24 240x320 frames: 4 steps of
-    the template's batch 20 at patch 200), then `Trainer.test()` on two
-    windows of a 6-frame video. Launch counts are reset just before train()
-    and read just after; then three more steps on one batch are timed, each
-    ended by a device sync. Returns (the run's record, launch counts,
-    backward launch counts)."""
+    """The training main path of the model `cfg` names (SPEINet or SWINT):
+    `Trainer.train()` for one epoch at full width on a synthetic in-memory
+    tree (2 videos of 24 240x320 frames: 4 steps of the template's batch 20
+    at patch 200), then `Trainer.test()` on two windows of a 6-frame video.
+    Launch counts are reset just before train() and read just after, and
+    again around test() (the record's `test_launches`); then three more
+    steps on one batch are timed, each ended by a device sync. Returns (the
+    run's record, launch counts, backward launch counts, the trainer, the
+    discriminator's first weights)."""
     import os
 
     import numpy as np
     import torch
     from speinet_tpu_torch.data.loader import to_device
     from speinet_tpu_torch.kernels import BACKWARD_LAUNCHES, LAUNCHES, reset_launches
-    from speinet_tpu_torch.models.speinet import SPEINet, init_weights
+    from speinet_tpu_torch.models import make_model
+    from speinet_tpu_torch.models.speinet import init_weights
     from speinet_tpu_torch.training.train_state import train_step
     from speinet_tpu_torch.training.trainer import Trainer
     from speinet_tpu_torch.utils.logging import Logger
@@ -1007,7 +1027,7 @@ def run_training(cfg, workdir: str):
             pass
 
     logger = Unplotted(cfg)
-    model = init_weights(SPEINet.from_config(cfg), cfg.seed)
+    model = init_weights(make_model(cfg), cfg.seed)
     trainer = Trainer(cfg, memory_data(cfg, train_root, test_root, store), model,
                       logger, device="cuda")
     params0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -1030,9 +1050,12 @@ def run_training(cfg, workdir: str):
              for kind, suffix in (("weights", "weight"), ("running_means", "running_mean"))}
     total = {kind: sum(k.endswith(suffix) for k in after)
              for kind, suffix in (("weights", "weight"), ("running_means", "running_mean"))}
+    reset_launches()
     t1 = time.time()
     trainer.test()
+    torch.cuda.synchronize()
     test_s = time.time() - t1
+    test_counts = dict(LAUNCHES)
     psnr = trainer.ckp.psnr_log[-1]
     logger.done()
 
@@ -1055,14 +1078,16 @@ def run_training(cfg, workdir: str):
     if moved["weights"] < 0.9 * total["weights"] or moved["running_means"] != total[
             "running_means"]:
         raise AssertionError(f"training moved {moved} of {total}")
-    record = dict(loss=cfg.loss, batch=cfg.batch_size, patch=cfg.patch_size, steps=steps,
+    record = dict(model=cfg.model, loss=cfg.loss, batch=cfg.batch_size,
+                  patch=cfg.patch_size, steps=steps,
                   epoch_wall_s=wall, epoch_loss=losses[-1],
                   epoch_components=dict(zip(trainer.ckp.comp_names,
                                             trainer.ckp.comp_log[0].tolist())),
                   test_windows=len(trainer.data.loader_test),
-                  test_s=test_s, test_psnr=psnr, moved=moved, of=total,
+                  test_s=test_s, test_psnr=psnr, test_launches=test_counts,
+                  moved=moved, of=total,
                   ms_per_step=ms, step_ms=step_ms,
-                  frames_per_s=cfg.batch_size / (ms / 1e3),
+                  windows_per_s=cfg.batch_size / (ms / 1e3),
                   peak_memory_gib=peak / 2 ** 30)
     return record, counts, backward, trainer, dis0
 
@@ -1106,6 +1131,7 @@ def check_plugins(record, trainer, dis0, workdir: str):
 GRAD_GROUPS = (("encoder", ("recons_net.inBlock.", "recons_net.encoder_")),
                ("swin", ("swin.",)),
                ("transfer", ("fusion.", "SelfTransfer.")),
+               ("fusion_conv", ("conv.",)),            # SWINT's 1x1 fusion conv
                ("decoder", ("recons_net.decoder_", "recons_net.outBlock.",
                             "conv_lv", "search")))
 
@@ -1136,9 +1162,9 @@ def wrong_roll():
 
 
 def check_train_against_cpu(cfg, plant: bool = True):
-    """The card's bf16 train step against the port's f32 CPU step, same
-    weights and batch (the mixed 80x80 pair; the Swin depth cut to 2 blocks,
-    widths full): the loss within 2%, the gradient's cosine >= 0.99 for each
+    """The card's bf16 train step of the model `cfg` names (SPEINet or
+    SWINT) against the port's f32 CPU step, same weights and batch (the
+    mixed 80x80 pair; the Swin depth cut to 2 blocks, widths full): the loss within 2%, the gradient's cosine >= 0.99 for each
     parameter group, and >= 0.9 for each parameter tensor of 64 elements or
     more (cosines in float64). DropPath and HEM draw from one CPU generator
     seeded alike on both sides. The check must reject one planted fault: a
@@ -1152,15 +1178,16 @@ def check_train_against_cpu(cfg, plant: bool = True):
     runs the planted fault."""
     import torch
     import speinet_tpu_torch.models.swinir as swinir
-    from speinet_tpu_torch.models.speinet import SPEINet, init_weights
+    from speinet_tpu_torch.models import make_model
+    from speinet_tpu_torch.models.speinet import init_weights
     from speinet_tpu_torch.training.loss import LossComputer
     from speinet_tpu_torch.training.train_state import (make_gan_state, make_optimizer,
                                                         train_step)
 
     small = cfg.replace(depths=[2], num_heads=[8])
-    gpu = init_weights(SPEINet.from_config(small), 0).to("cuda")
+    gpu = init_weights(make_model(small), 0).to("cuda")
     state = {k: v.detach().clone() for k, v in gpu.state_dict().items()}
-    cpu = SPEINet.from_config(small.replace(compute_dtype="float32"))
+    cpu = make_model(small.replace(compute_dtype="float32"))
     x = mixed_batch(small_frames())
     gt = x[:, 1].clone()
 
@@ -1207,6 +1234,262 @@ def check_train_against_cpu(cfg, plant: bool = True):
     if planted["ok"]:
         raise AssertionError(f"train step check accepts the planted roll fault: {planted}")
     return dict(step=good, planted_fault_rejected=planted)
+
+# --- SWINT, detector training, utility ops -----------------------------------
+
+def cfg_swint():
+    """The SWINT template, in bf16, as its phases run it."""
+    from speinet_tpu_torch.config import Config, set_template
+
+    return set_template(Config(template="SWINT")).replace(
+        compute_dtype="bfloat16", n_threads=4)
+
+
+def check_swint_against_cpu(cfg):
+    """SWINT at full width (depths 6x6) on the card in bf16 against its f32
+    CPU path, same seeded weights, at 80x80 on a batch of two windows (the
+    synthetic frames and their mirror image): n_sequence 3, n_sequence 1
+    (no neighbour: the centre's residual Swin pass), and n_sequence 3 with
+    swin_fuse_block=False, whose blocks must launch K8 + K9 and not K2.
+    Each above 30 dB, as `compare_to_cpu` holds SPEINet. Returns the
+    comparisons and the launch counts of each card forward."""
+    import torch
+    from speinet_tpu_torch.kernels import LAUNCHES, reset_launches
+    from speinet_tpu_torch.models.speinet import init_weights
+    from speinet_tpu_torch.models.swint import SWINT
+
+    out = {}
+    for name, n_seq, fuse in (("nseq3", 3, True), ("nseq1", 1, True),
+                              ("split", 3, False)):
+        c = cfg.replace(n_sequence=n_seq)
+        gpu = init_weights(SWINT.from_config(c, swin_fuse_block=fuse), 0).to("cuda").eval()
+        cpu = SWINT.from_config(c.replace(compute_dtype="float32"), swin_fuse_block=fuse)
+        cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+        frames = small_frames(n_seq)
+        x = torch.stack([frames, frames.flip(-1)])
+        reset_launches()
+        got = gpu(x.cuda()).float().cpu()
+        torch.cuda.synchronize()
+        counts = dict(LAUNCHES)
+        out[name] = dict(compare_to_cpu(f"swint {name}", got, cpu.eval()(x)),
+                         launches=counts)
+        needs = ["conv2d", "roll2d"] + (["swin_block"] if fuse else
+                                        ["window_cross_attention", "ln_mlp"])
+        missing = [k for k in needs if counts[k] <= 0]
+        if missing or (not fuse and counts["swin_block"] > 0):
+            raise AssertionError(f"swint {name}: launches {counts}")
+    return out
+
+
+def _undecided(tree, x, tol: float):
+    """Rows of x whose path through `tree` passes a split threshold within
+    `tol` relative of the row's feature."""
+    out = []
+    for row in x:
+        node, near = tree.root, False
+        while node.left is not None:
+            v = row[node.feature]
+            near |= abs(v - node.threshold) <= tol * max(abs(v), abs(node.threshold))
+            node = node.left if v <= node.threshold else node.right
+        out.append(near)
+    return out
+
+
+def check_detector_train():
+    """The detector-training entry point `train_detectors` on the card's and
+    the CPU's features. Data: 16 synthetic 180x320 videos of 120 frames,
+    each re-blurred by the GoProRS generator (ratio 0.5, one seeded
+    generator), as `collate_synthetic` does; the focus features (k 11) on
+    each device. The frames are cut from the GoPro 1280x720: the fits see
+    one 6-feature row per sample, so the check needs samples, not pixels
+    (276 here), and at 720p their 1920 sharp frames, the generator and the
+    CPU's half of the feature pass would take about 160 s on four CPU
+    threads, more than the whole smoke run's margin; `check_detector` holds
+    the feature pass itself card against CPU on the main path's 1280x720
+    frames.
+    `train_detectors` (90 / 10 split, the logistic model, a tree and a
+    10-tree forest, the three `{Model}_0.5_11.pkl` pickles and the CSV)
+    runs once on each side's features; the pickles are loaded back through
+    the port's loaders. Rules:
+    - features within 1e-4 relative (as `check_detector`);
+    - each side's CSV has the header and one row per model, its numbers the
+      metrics `train_detectors` returned;
+    - logistic coefficients and intercept within the spread that the 1e-4
+      feature tolerance itself produces: the largest change, over 8 fits on
+      the CPU's training rows each scaled element-wise by 1 + 1e-4 s with
+      random signs s, of each coefficient (mean / scale within 1e-4
+      relative);
+    - labels of every sample equal wherever the CPU margin exceeds the
+      slack that the feature tolerance and that coefficient spread allow;
+    - held-out tree and forest predictions equal on every sample none of
+      whose split tests on the CPU fit lies within 2e-4 relative of its
+      threshold (the two sides' features differ by up to 1e-4 each way, so
+      only such a test can go either way; the fits split at midpoints of
+      the sorted training values, the same where the order is), so the
+      required agreement on those samples is 100%; the rate over all
+      held-out samples is reported;
+    - each model's held-out metrics equal on both sides when every
+      held-out sample is decided under those rules."""
+    import csv
+    import os
+
+    import numpy as np
+    from speinet_tpu_torch.data.gopro_rs import generate_blurry_sequence
+    from speinet_tpu_torch.detector.classifier import (DecisionTree, LogisticRegression,
+                                                       RandomForest,
+                                                       fit_logistic_regression)
+    from speinet_tpu_torch.detector.train import (holdout_split, train_detectors,
+                                                  video_features)
+
+    rng = np.random.default_rng(0)
+    blur, labels = [], []
+    for v in range(16):
+        b, _, y = generate_blurry_sequence(synthetic_video(120, 180, 320, seed=20 + v),
+                                           0.5, rng)
+        blur.append(b)
+        labels.append(y)
+    blur, y = np.concatenate(blur), np.concatenate(labels)
+    t0 = time.time()
+    f_gpu = video_features(blur, 11, device="cuda")
+    gpu_s = time.time() - t0
+    f_cpu = video_features(blur, 11, device="cpu")
+    rel = float(np.max(np.abs(f_gpu - f_cpu) / np.maximum(np.abs(f_cpu), 1e-30)))
+    if not rel <= 1e-4:
+        raise AssertionError(f"detector_train features: relative diff {rel}")
+
+    models, metrics = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for side, f in (("card", f_gpu), ("cpu", f_cpu)):
+            out, table = os.path.join(tmp, side), os.path.join(tmp, f"{side}.csv")
+            metrics[side] = train_detectors(f, y, out, 0.5, 11, csv_path=table,
+                                            n_forest_trees=10)
+            pkl = lambda m: os.path.join(out, f"{m}_0.5_11.pkl")
+            models[side] = (LogisticRegression.load(pkl("LogisticRegression")),
+                            DecisionTree.load(pkl("DecisionTree")),
+                            RandomForest.load(pkl("RandomForest")))
+            with open(table, newline="") as fh:
+                rows = list(csv.reader(fh))
+            want = [["model", "ratio", "kernel_size", "accuracy", "recall",
+                     "precision", "f1"]] + [
+                [m, "0.5", "11"] + [str(r[k]) for k in ("accuracy", "recall",
+                                                        "precision", "f1")]
+                for m, r in metrics[side].items()]
+            if rows != want:
+                raise AssertionError(f"detector_train {side} CSV: {rows} vs {want}")
+    (lr_g, dt_g, rf_g), (lr_c, dt_c, rf_c) = models["card"], models["cpu"]
+    test, train = holdout_split(len(y))
+
+    spread_w = np.zeros_like(lr_c.coef, dtype=np.float64)
+    spread_b = 0.0
+    for k in range(8):
+        s = np.random.default_rng(100 + k).choice([-1.0, 1.0], f_cpu[train].shape)
+        p = fit_logistic_regression(f_cpu[train] * (1 + 1e-4 * s), y[train])
+        spread_w = np.maximum(spread_w, np.abs(p.coef - lr_c.coef))
+        spread_b = max(spread_b, abs(p.intercept - lr_c.intercept))
+    d_w = np.abs(lr_g.coef - lr_c.coef)
+    d_b = abs(lr_g.intercept - lr_c.intercept)
+    if not (np.all(d_w <= spread_w) and d_b <= spread_b
+            and np.allclose(lr_g.mean, lr_c.mean, rtol=1e-4)
+            and np.allclose(lr_g.scale, lr_c.scale, rtol=1e-4)):
+        raise AssertionError(f"logistic fit card vs cpu: coef diff {d_w} (spread "
+                             f"{spread_w}), intercept diff {d_b} ({spread_b})")
+    z = (f_cpu - lr_c.mean) / lr_c.scale
+    slack = (np.abs(lr_c.coef / lr_c.scale) * np.abs(f_cpu) * 2e-4).sum(axis=1) \
+        + (spread_w * np.abs(z)).sum(axis=1) + spread_b
+    sure = np.abs(lr_c.decision_function(f_cpu)) > slack
+    l_gpu, l_cpu = lr_g.predict(f_gpu), lr_c.predict(f_cpu)
+    if not np.array_equal(l_gpu[sure], l_cpu[sure]):
+        raise AssertionError("logistic labels card vs cpu differ beyond the slack")
+    held = {}
+    for name, card, ref in (("LogisticRegression", lr_g, lr_c),
+                            ("DecisionTree", dt_g, dt_c), ("RandomForest", rf_g, rf_c)):
+        if name == "LogisticRegression":
+            undecided = ~sure[test]
+        else:
+            trees = ref.trees if name == "RandomForest" else [ref]
+            undecided = np.any([_undecided(t, f_cpu[test], 2e-4) for t in trees],
+                               axis=0)
+        agree = card.predict(f_gpu[test]) == ref.predict(f_cpu[test])
+        if not agree[~undecided].all():
+            raise AssertionError(f"{name}: held-out predictions differ on decided "
+                                 f"samples {np.flatnonzero(~agree & ~undecided)}")
+        same = metrics["card"][name] == metrics["cpu"][name]
+        if not undecided.any() and not same:
+            raise AssertionError(f"{name}: held-out metrics {metrics['card'][name]} "
+                                 f"vs {metrics['cpu'][name]}")
+        held[name] = dict(agree_rate=float(agree.mean()),
+                          decided=int((~undecided).sum()), of=len(test),
+                          metrics_equal=same, metrics_cpu=metrics["cpu"][name])
+    return dict(samples=len(y), sharp=int(y.sum()), size="180x320",
+                features_max_rel_diff=rel, features_card_s=gpu_s,
+                logistic=dict(coef_diff=d_w.tolist(), coef_tol=spread_w.tolist(),
+                              intercept_diff=d_b, intercept_tol=spread_b,
+                              labels_decided=int(sure.sum()),
+                              labels_agree=float((l_gpu == l_cpu).mean())),
+                held_out=held)
+
+
+def check_ops():
+    """The classical smoothing and utility ops on a 1280x720 frame (in
+    [0, 1], its 5x5 box blur, the PSF) on the card against the CPU, both
+    float32 (TF32 off). Tolerances, as max |card - cpu| / max |cpu|:
+    sobel_magnitude and adaptive_instance_normalization (on the frame as
+    [1, 3, 720, 1280] against its blur as [1, 3, 720, 256, 5]) 1e-5, a few
+    float32 steps; wiener_deconv and ftvd (20 iterations) 1e-5, where the
+    CPU's own float32 result lies within 1e-6 of its float64 one;
+    psnr_uint8 (float64) 1e-9 relative. l0_smoothing thresholds gradients
+    at lam / beta, so a pixel whose gradient lies within rounding of the
+    threshold may go either way: on the CPU its float32 result differs from
+    its float64 one by 1.1e-5 on average, up to 4.7e-3 at 1% of the pixels;
+    the rule is a mean |diff| <= 1e-4 and a PSNR >= 60 dB."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+    from speinet_tpu_torch.ops.filters import sobel_magnitude, wiener_deconv
+    from speinet_tpu_torch.ops.metrics import psnr_uint8
+    from speinet_tpu_torch.ops.smoothing import ftvd, l0_smoothing
+    from speinet_tpu_torch.utils.image_utils import adaptive_instance_normalization
+
+    frame = torch.from_numpy(synthetic_video(1, 720, 1280, seed=5)[0]).float() / 255.0
+    nchw = frame.permute(2, 0, 1)[None].contiguous()
+    blur = F.avg_pool2d(nchw, 5, stride=1, padding=2, count_include_pad=False)
+    u8 = lambda t: (t.clamp(0, 1) * 255).round().to(torch.uint8)
+    host = dict(frame=frame, nchw=nchw, blur=blur, psf=torch.ones((5, 5)) / 25.0,
+                blur_hwc=blur[0].permute(1, 2, 0).contiguous(), frame_u8=u8(frame),
+                blur_u8=u8(blur[0].permute(1, 2, 0)),
+                knn=blur.reshape(1, 3, 720, 256, 5))
+    inputs = {d: {k: v.to(d) for k, v in host.items()} for d in ("cuda", "cpu")}
+    ops = {
+        "psnr_uint8": (lambda t: psnr_uint8(t["frame_u8"], t["blur_u8"]), 1e-9),
+        "l0_smoothing": (lambda t: l0_smoothing(t["frame"]), None),
+        "ftvd": (lambda t: ftvd(t["blur_hwc"], t["psf"]), 1e-5),
+        "wiener_deconv": (lambda t: wiener_deconv(t["blur"], t["psf"]), 1e-5),
+        "sobel_magnitude": (lambda t: sobel_magnitude(t["nchw"]), 1e-5),
+        "adaptive_instance_normalization": (
+            lambda t: adaptive_instance_normalization(t["nchw"], t["knn"]), 1e-5),
+    }
+    out = {}
+    for name, (fn, tol) in ops.items():
+        got = fn(inputs["cuda"]).cpu()
+        t0 = time.time()
+        ref = fn(inputs["cpu"])
+        cpu_s = time.time() - t0
+        diff = (got.double() - ref.double()).abs()
+        rel = (diff.max() / ref.double().abs().max()).item()
+        row = dict(max_abs_err=diff.max().item(), rel_err=rel, cpu_ms=cpu_s * 1e3,
+                   ms=time_ms(lambda: fn(inputs["cuda"]), iters=3, warmup=1))
+        if tol is None:
+            mse = (diff ** 2).mean().item()
+            row.update(mean_abs_err=diff.mean().item(),
+                       psnr_db=10 * math.log10(1.0 / max(mse, 1e-30)))
+            ok = row["mean_abs_err"] <= 1e-4 and row["psnr_db"] >= 60.0
+        else:
+            ok = torch.isfinite(got).all().item() and rel <= tol
+        if not ok:
+            raise AssertionError(f"{name} card vs cpu: {row}")
+        out[name] = row
+    return out
 
 # --- n_sequence, K4 under autograd, profiling --------------------------------
 
@@ -1562,17 +1845,20 @@ def main() -> int:
     print(f"n_sequence 1: checked in {time.time() - t1:.1f} s", flush=True)
     print("detector: " + json.dumps(check_detector(frames)), flush=True)
 
-    # the training main path: its launch counts reset just before the epoch
-    # the training main paths, the template's loss and the plugins' spec
-    # (the VGG and GAN weights of the JAX package's plugin tests); launch
-    # counts reset just before each epoch
+    # the training main paths: SPEINet with the template's loss and with the
+    # plugins' spec (the VGG and GAN weights of the JAX package's plugin
+    # tests), then SWINT; launch counts reset just before each epoch and
+    # around each test(); each step then held to the CPU's (the planted K3
+    # fault where `plant`)
     records = {}
-    for path, loss in (("train", cfg.loss),
-                       ("train_plugins", cfg.loss + "+0.1*VGG22+0.01*GAN")):
+    swint = cfg_swint()
+    for path, tcfg, plant in (("train", cfg, True),
+                              ("train_plugins",
+                               cfg.replace(loss=cfg.loss + "+0.1*VGG22+0.01*GAN"), False),
+                              ("swint", swint, True)):
         t1 = time.time()
         with tempfile.TemporaryDirectory() as work:
-            record, counts, backward, trainer, dis0 = run_training(
-                cfg.replace(loss=loss), work)
+            record, counts, backward, trainer, dis0 = run_training(tcfg, work)
             if trainer.gan is not None:
                 record["plugins"] = check_plugins(record, trainer, dis0, work)
         del trainer
@@ -1581,31 +1867,44 @@ def main() -> int:
                                                         backward_launches=backward)),
               flush=True)
         print(f"main path ({path}): run in {time.time() - t1:.1f} s", flush=True)
-        missing = [k for k in TRAIN_LAUNCHES if counts[k] <= 0]
+        missing = [k for k in TRAIN_LAUNCHES[tcfg.model] if counts[k] <= 0]
         if backward["roll2d"] <= 0:
             missing.append("roll2d (backward)")
+        missing += [f"{k} (test)" for k in TEST_LAUNCHES[tcfg.model]
+                    if record["test_launches"][k] <= 0]
         if missing:
             raise AssertionError(f"kernels not launched in the {path} steps: {missing}")
-        stray = [k for k in TRAIN_SHUNS if counts[k] > 0]
+        stray = [k for k in TRAIN_SHUNS[tcfg.model] if counts[k] > 0]
         if stray:
-            raise AssertionError(f"kernels without a backward launched in the {path} "
-                                 f"steps: {stray}")
-        by_path[path] = counts
-        for k in launches:
-            launches[k] += counts[k]
+            raise AssertionError(f"kernels without a backward or of another model "
+                                 f"launched in the {path} steps: {stray}")
+        for name, c in ((path, counts), (f"{path}_test", record["test_launches"])):
+            by_path[name] = c
+            for k in launches:
+                launches[k] += c[k]
         t1 = time.time()
         print(f"{path} step card vs cpu: " + json.dumps(check_train_against_cpu(
-            cfg.replace(loss=loss), plant=path == "train")), flush=True)
+            tcfg, plant=plant)), flush=True)
         print(f"{path} step card vs cpu: checked in {time.time() - t1:.1f} s",
               flush=True)
-    record = records["train"]
+    t1 = time.time()
+    swint_cpu = check_swint_against_cpu(swint)
+    print("swint card vs cpu: " + json.dumps(swint_cpu), flush=True)
+    print(f"swint card vs cpu: checked in {time.time() - t1:.1f} s", flush=True)
+    by_path["swint_split"] = swint_cpu["split"]["launches"]
+    for k in launches:
+        launches[k] += by_path["swint_split"][k]
+    for name, fn in (("detector_train", check_detector_train), ("ops", check_ops)):
+        t1 = time.time()
+        print(f"{name}: " + json.dumps(fn()), flush=True)
+        print(f"{name}: checked in {time.time() - t1:.1f} s", flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     for path, rec in records.items():
-        print(f"{path} (batch {rec['batch']}, patch {rec['patch']}, bf16, loss "
-              f"{rec['loss']}): {rec['ms_per_step']:.1f} ms per step, "
-              f"{rec['frames_per_s']:.2f} frames/s, peak memory "
+        print(f"{path} ({rec['model']}, batch {rec['batch']}, patch {rec['patch']}, bf16, "
+              f"loss {rec['loss']}): {rec['ms_per_step']:.1f} ms per step, "
+              f"{rec['windows_per_s']:.2f} windows/s, peak memory "
               f"{rec['peak_memory_gib']:.2f} GiB; {smi}", flush=True)
     for path in ("cached", "direct", "nseq5_cached", "nseq5_direct"):
         per_frame = {k: v / n_frames * 1e3

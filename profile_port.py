@@ -16,8 +16,10 @@ kernel paths of chip_smoke.py, same weights. Then the training form: a
 forward of the template's batch of 20 windows at patch 200 in training
 mode with the loss (`1*L1+2*HEM`), and whole train steps (forward, loss,
 backward, Adam), on random frames; both again with the VGG and GAN
-plugins (`+0.1*VGG22+0.01*GAN`, the discriminator's step included), and a
-'sharp' restore at n_sequence 5 (four neighbour streams). Prints, per
+plugins (`+0.1*VGG22+0.01*GAN`, the discriminator's step included), a
+'sharp' restore at n_sequence 5 (four neighbour streams), and the SWINT
+template's inference forward of two 720p windows, training forward and
+train step. Prints, per
 stage, the wall
 ms per call (host clock around work ending in a device sync), the
 device-busy share (summed kernel time of the profiled calls over the wall
@@ -81,15 +83,17 @@ def host_syncs(fn) -> Counter:
 
 
 def add_train_stages(stages: dict, cfg, g, tag: str = "") -> None:
-    """The train step at the template's batch and patch, own weights, with
-    the discriminator where `cfg.loss` has a GAN term."""
+    """The train step of the model `cfg` names at the template's batch and
+    patch, own weights, with the discriminator where `cfg.loss` has a GAN
+    term."""
     import torch
-    from speinet_tpu_torch.models.speinet import SPEINet, init_weights
+    from speinet_tpu_torch.models import make_model
+    from speinet_tpu_torch.models.speinet import init_weights
     from speinet_tpu_torch.training.loss import LossComputer
     from speinet_tpu_torch.training.train_state import (make_gan_state, make_optimizer,
                                                         train_step)
 
-    model = init_weights(SPEINet.from_config(cfg), seed=0).cuda()
+    model = init_weights(make_model(cfg), seed=0).cuda()
     opt = make_optimizer(cfg, model)
     loss = LossComputer(cfg.loss, rgb_range=cfg.rgb_range)
     gan = make_gan_state(cfg, "cuda")
@@ -117,6 +121,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from speinet_tpu_torch.config import Config, set_template
+    from speinet_tpu_torch.models import make_model
     from speinet_tpu_torch.models.speinet import SPEINet, init_weights
 
     cfg = set_template(Config(template="SPEINet")).replace(compute_dtype="bfloat16")
@@ -152,6 +157,10 @@ def main() -> int:
     add_train_stages(stages, cfg, g)
     add_train_stages(stages, cfg.replace(loss=cfg.loss + "+0.1*VGG22+0.01*GAN"), g,
                      ", VGG22 + GAN")
+    swint_cfg = set_template(Config(template="SWINT")).replace(compute_dtype="bfloat16")
+    swint = init_weights(make_model(swint_cfg), seed=0).cuda().eval()
+    stages[f"SWINT forward ({b} windows)"] = lambda: swint(x)
+    add_train_stages(stages, swint_cfg, g, ", SWINT")
     print(f"device: {torch.cuda.get_device_name(0)}")
     for name, fn in stages.items():
         fn()

@@ -16,6 +16,8 @@ in training (recons_video.py:35-40), and the gates use batch statistics.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -92,3 +94,13 @@ class ReconsVideo(nn.Module):
         for blk in self.outBlock[:self.n_resblock]:
             x = blk(x, dtype, train)
         return conv_nhwc(x, self.outBlock[self.n_resblock], dtype)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """The whole hourglass in float32, NHWC [B, H, W, in] -> [B, H, W,
+        out] (the standalone model, recons_video.py:189-196); without
+        autograd unless `train`."""
+        dt = torch.float32
+        with contextlib.nullcontext() if train else torch.no_grad():
+            lv3 = self.encode_pyramid(x, dt, train)[2]
+            d1 = self.decode_first(self.decode_second(lv3, dt, train), dt, train)
+            return self.out_block(d1, dt, train)

@@ -41,15 +41,13 @@ import torch
 import torch.nn as nn
 
 from speinet_tpu_torch.config import Config
+from speinet_tpu_torch.models import compute_dtype
 from speinet_tpu_torch.models.blocks import conv1x1, conv_k1
 from speinet_tpu_torch.models.recons_video import ReconsVideo
 from speinet_tpu_torch.models.search_transfer import SelfTransfer, transfer
-from speinet_tpu_torch.models.swinir import SwinIRCross
+from speinet_tpu_torch.models.swinir import SwinIRCross, swin_fuse
 from speinet_tpu_torch.ops.filters import box_kernel, richardson_lucy
 from speinet_tpu_torch.ops.resize import bicubic_upsample_nhwc
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
 
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int) -> nn.Module:
@@ -126,14 +124,12 @@ class SPEINet(nn.Module):
     @classmethod
     def from_config(cls, cfg: Config, **paths: bool) -> "SPEINet":
         """The model `cfg` describes; `paths` are the keyword-only switches."""
-        if cfg.compute_dtype not in _DTYPES:
-            raise ValueError(f"compute_dtype {cfg.compute_dtype!r}")
         return cls(n_sequence=cfg.n_sequence, n_feat=cfg.n_feat,
                    n_resblock=cfg.n_resblock, out_channels=cfg.n_colors,
                    embed_dim=cfg.embed_dim, depths=tuple(cfg.depths),
                    num_heads=tuple(cfg.num_heads), window_size=cfg.window_size,
                    mlp_ratio=cfg.mlp_ratio, drop_path_rate=cfg.drop_path_rate,
-                   dtype=_DTYPES[cfg.compute_dtype],
+                   dtype=compute_dtype(cfg),
                    **paths)
 
     def _fast(self, conv: nn.Conv2d, x: torch.Tensor, train: bool) -> torch.Tensor:
@@ -144,22 +140,6 @@ class SPEINet(nn.Module):
 
     def _c1(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
         return conv1x1(x, conv, self.dtype)
-
-    def _fuse(self, f_mid: torch.Tensor, neighbor_feats, train: bool = False,
-              generator: torch.Generator | None = None) -> torch.Tensor:
-        """Every neighbour through one batched swin call (same K/V stream),
-        concatenated after the centre; with none (n_sequence 1) the centre's
-        own Swin pass added to it (speinet.py:87-89)."""
-        if not neighbor_feats:
-            return f_mid.to(self.dtype) + self.swin(f_mid, f_mid, self.dtype, train,
-                                                    generator)
-        b = f_mid.shape[0]
-        x_in = torch.cat([f_mid] * len(neighbor_feats), dim=0)
-        y_in = torch.cat(list(neighbor_feats), dim=0)
-        f_trans = self.swin(x_in, y_in, self.dtype, train, generator)
-        parts = [f_mid.to(self.dtype)] + [f_trans[k * b:(k + 1) * b]
-                                          for k in range(len(neighbor_feats))]
-        return torch.cat(parts, dim=-1)
 
     def _decode(self, f_fusion, weight_s, t_lv3, t_lv2, t_lv1, train: bool = False):
         """Decoder with S-weighted texture injection and multi-scale cross
@@ -241,7 +221,8 @@ class SPEINet(nn.Module):
                  routing: str, has_sharp: torch.Tensor | None = None,
                  train: bool = False,
                  generator: torch.Generator | None = None) -> torch.Tensor:
-        f_fusion = self._fuse(f_mid, neighbor_feats, train, generator)
+        f_fusion = swin_fuse(self.swin, f_mid, neighbor_feats, self.dtype, train,
+                             generator)
         f_fusion = self._c1(self.fusion, f_fusion)
         weight_s, t3, t2, t1 = transfer(self.SelfTransfer, f_fusion, sharp_lv1,
                                         sharp_lv2, sharp_lv3, routing, self.dtype,

@@ -360,3 +360,23 @@ class SwinIRCross(nn.Module):
                           self.norm.eps).to(dtype).reshape(b, hh, ww, e)
         res = conv_nhwc(feat, self.conv_after_body, dtype) + x_first
         return x.to(dtype) + conv_nhwc(res, self.conv_last, dtype)
+
+
+def swin_fuse(swin: SwinIRCross, f_mid: torch.Tensor, neighbor_feats,
+              dtype: torch.dtype, train: bool = False,
+              generator: torch.Generator | None = None) -> torch.Tensor:
+    """The centre's features [B, h, w, C] fused with each neighbour's: every
+    neighbour through one batched Swin call (the centre, repeated once per
+    neighbour, as the stream the blocks update; the neighbours as the
+    constant query stream), concatenated after the centre -> [B, h, w,
+    C n_sequence]; with none (n_sequence 1) the centre's own Swin pass added
+    to it (speinet.py:87-89, swint.py:70-79)."""
+    if not neighbor_feats:
+        return f_mid.to(dtype) + swin(f_mid, f_mid, dtype, train, generator)
+    b = f_mid.shape[0]
+    x_in = torch.cat([f_mid] * len(neighbor_feats), dim=0)
+    y_in = torch.cat(list(neighbor_feats), dim=0)
+    f_trans = swin(x_in, y_in, dtype, train, generator)
+    parts = [f_mid.to(dtype)] + [f_trans[k * b:(k + 1) * b]
+                                 for k in range(len(neighbor_feats))]
+    return torch.cat(parts, dim=-1)

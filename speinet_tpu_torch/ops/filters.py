@@ -1,8 +1,15 @@
-"""Richardson–Lucy edge branch (port of `speinet_tpu/ops/filters.py`).
+"""Classical filters (port of `speinet_tpu/ops/filters.py`; parity: the
+reference's filter library model/rcl.py). NCHW tensors, as in the JAX
+module, computed on the tensor's device.
 
-Only the filters the cached-video path runs: `box_kernel`,
-`box_blur_separable`, the Laplacian shift form and `richardson_lucy`
-(reference `model/rcl.py:18-51`). NCHW tensors, as in the JAX module.
+- `box_kernel`, `box_blur_separable`, the Laplacian shift form and
+  `richardson_lucy`: the edge-information branch the model runs
+  (rcl.py:18-51);
+- `sobel_magnitude` (rcl.py:54-72), `laplacian_filter` (rcl.py:76-104),
+  `mean_filter` (util/utils.py:116-123) and `wiener_deconv`
+  (rcl.py:405-454): utility filters the model does not run;
+- `psf2otf`: a PSF's transfer function, which `wiener_deconv` and the FFT
+  solvers of `ops/smoothing.py` share.
 """
 
 from __future__ import annotations
@@ -11,6 +18,9 @@ import torch
 import torch.nn.functional as F
 
 _LAPLACIAN_RL = ((0.0, -1.0, 0.0), (-1.0, 4.0, -1.0), (0.0, -1.0, 0.0))
+_LAPLACIAN_8 = ((1.0, 1.0, 1.0), (1.0, -8.0, 1.0), (1.0, 1.0, 1.0))
+_SOBEL_X = ((-1.0, 0.0, 1.0), (-2.0, 0.0, 2.0), (-1.0, 0.0, 1.0))
+_SOBEL_Y = ((-1.0, -2.0, -1.0), (0.0, 0.0, 0.0), (1.0, 2.0, 1.0))
 
 
 def box_kernel(kernel_size: int = 5, dtype=torch.float32,
@@ -21,14 +31,15 @@ def box_kernel(kernel_size: int = 5, dtype=torch.float32,
 
 
 def depthwise_conv2d(x: torch.Tensor, kernel2d: torch.Tensor) -> torch.Tensor:
-    """One odd 2-D kernel applied to every channel of [B, C, H, W], zero
-    'SAME' padding."""
+    """One 2-D kernel applied to every channel of [B, C, H, W] with zero
+    'SAME' padding (XLA's: an even kernel pads one more after than before)."""
     c = x.shape[1]
     kh, kw = kernel2d.shape
-    if kh % 2 == 0 or kw % 2 == 0:
-        raise ValueError(f"odd kernel expected, got {tuple(kernel2d.shape)}")
     w = kernel2d.to(x.dtype).expand(c, 1, kh, kw)
-    return F.conv2d(x, w, padding=(kh // 2, kw // 2), groups=c)
+    if kh % 2 and kw % 2:
+        return F.conv2d(x, w, padding=(kh // 2, kw // 2), groups=c)
+    xp = F.pad(x, ((kw - 1) // 2, kw // 2, (kh - 1) // 2, kh // 2))
+    return F.conv2d(xp, w, groups=c)
 
 
 def box_blur_separable(x: torch.Tensor, kernel_size: int) -> torch.Tensor:
@@ -85,3 +96,44 @@ def richardson_lucy(image: torch.Tensor, kernel2d: torch.Tensor,
         ratio = torch.where(ratio < 0, torch.zeros_like(ratio), ratio)
         out = ratio * (out + regularization_strength * lap_out)
     return out
+
+
+def _kernel(values, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(values, dtype=like.dtype, device=like.device)
+
+
+def sobel_magnitude(x: torch.Tensor) -> torch.Tensor:
+    """Per-channel Sobel gradient magnitude (parity: rcl.py:54-72)."""
+    gx = depthwise_conv2d(x, _kernel(_SOBEL_X, x))
+    gy = depthwise_conv2d(x, _kernel(_SOBEL_Y, x))
+    return torch.sqrt(gx ** 2 + gy ** 2)
+
+
+def laplacian_filter(x: torch.Tensor) -> torch.Tensor:
+    """8-neighbour Laplacian (parity: rcl.py:76-104)."""
+    return depthwise_conv2d(x, _kernel(_LAPLACIAN_8, x))
+
+
+def mean_filter(x: torch.Tensor, kernel_size: int = 11) -> torch.Tensor:
+    """Box mean filter (parity: util/utils.py:116-123)."""
+    return depthwise_conv2d(x, box_kernel(kernel_size, x.dtype, x.device))
+
+
+def psf2otf(psf: torch.Tensor, shape) -> torch.Tensor:
+    """The transfer function of `psf` [kh, kw] on an [H, W] grid: the PSF
+    zero-padded to `shape`, its centre rolled to the origin, then FFT'd
+    (complex, on the PSF's device)."""
+    kh, kw = psf.shape
+    pad = torch.zeros(tuple(shape), dtype=psf.dtype, device=psf.device)
+    pad[:kh, :kw] = psf
+    return torch.fft.fft2(torch.roll(pad, (-(kh // 2), -(kw // 2)), dims=(0, 1)))
+
+
+def wiener_deconv(image: torch.Tensor, kernel2d: torch.Tensor,
+                  snr: float = 0.01) -> torch.Tensor:
+    """FFT Wiener deconvolution per channel (parity: rcl.py:405-454) of
+    image [B, C, H, W] by the PSF kernel2d [kh, kw], centred at the origin
+    (circular boundary); in the image's dtype."""
+    h = psf2otf(kernel2d.to(image.dtype), image.shape[-2:])
+    g = torch.conj(h) / (h.abs() ** 2 + snr)
+    return torch.fft.ifft2(torch.fft.fft2(image) * g).real.to(image.dtype)

@@ -3,8 +3,9 @@
 - `psnr_shave`: train / eval PSNR on [0, rgb_range] float tensors with a
   4-pixel shave (util/utils.py:81-92); `postprocess_uint8` turns a CHW
   float image into HWC uint8 (util/utils.py:68-78).
-- `psnr_uint8_host`: float64 host PSNR on uint8 images after a 4-pixel
-  border crop (inference_SPEINet.py:484-500), numpy as in the JAX package.
+- `psnr_uint8`: PSNR on [0, 255] images after a 4-pixel border crop
+  (inference_SPEINet.py:484-500), in float64 on the tensors' device;
+  `psnr_uint8_host` the same in numpy, as the inference logs take it.
 - `ssim_matlab`: MATLAB-equivalent SSIM, 11x11 Gaussian (sigma 1.5), valid
   region, C1/C2 at the 255 range, the map of all channels averaged
   (inference_SPEINet.py:502-543). Runs on the tensors' device.
@@ -30,6 +31,18 @@ def postprocess_uint8(img: torch.Tensor, rgb_range: float = 1.0) -> np.ndarray:
     """[C, H, W] float in [0, rgb_range] -> HWC uint8 numpy."""
     out = torch.clamp(torch.round(img.float() * (255.0 / rgb_range)), 0, 255)
     return out.to(torch.uint8).permute(1, 2, 0).cpu().numpy()
+
+
+def psnr_uint8(img1: torch.Tensor, img2: torch.Tensor,
+               crop_border: int = 4) -> torch.Tensor:
+    """Inference PSNR of two [0, 255] images (HWC, the border cropped from
+    the two leading axes): a 0-d float64 tensor on their device, inf where
+    they are equal."""
+    a = img1[crop_border:-crop_border, crop_border:-crop_border].double()
+    b = img2[crop_border:-crop_border, crop_border:-crop_border].double()
+    mse = ((a - b) ** 2).mean()
+    return torch.where(mse == 0, torch.full_like(mse, float("inf")),
+                       20.0 * torch.log10(255.0 / torch.sqrt(mse)))
 
 
 def psnr_uint8_host(img1: np.ndarray, img2: np.ndarray,

@@ -17,6 +17,8 @@ parity), so its tree has no such leaves; the port keeps the layer, and it
 is filled with zeros here. Every window length converts alike: the fusion
 conv's input width, 4 n_feat n_sequence, comes with its kernel.
 
+`swint_from_flax` converts a SWINT tree (recons_net, swin and its 1x1
+fusion conv `conv`); `flax_model_name` tells the two trees apart.
 `discriminator_from_flax` converts the GAN plugin's discriminator
 (`training/adversarial.py`: flax `Conv_{i}` -> `convs.{i}`).
 """
@@ -125,18 +127,29 @@ def _swin(sd, p, depths) -> None:
                 _swin_block(sd, prefix, lp[f"block{i}"], None)
 
 
+def flax_model_name(params: Dict[str, Any]) -> str:
+    """'SWINT' or 'SPEINet': the model a flax tree belongs to, by its keys
+    (SWINT has a fusion conv `conv` and no `conv_lv1`)."""
+    return "SWINT" if "conv_lv1" not in params and "conv" in params else "SPEINet"
+
+
 def flax_model_shape(params: Dict[str, Any]) -> Dict[str, Any]:
-    """The SPEINet configuration a flax tree was built with, read off its
-    shapes: n_feat, n_sequence (from the fusion conv's input width,
+    """The configuration a SPEINet or SWINT flax tree was built with, read
+    off its shapes: n_feat, n_sequence (from the fusion conv's input width,
     4 n_feat n_sequence), embed_dim, depths and n_resblock."""
-    n_feat = np.shape(params["conv_lv1"]["kernel"])[3]
+    if flax_model_name(params) == "SWINT":
+        fusion = np.shape(params["conv"]["kernel"])
+        n_feat = fusion[3] // 4
+    else:
+        fusion = np.shape(params["fusion"]["kernel"])
+        n_feat = np.shape(params["conv_lv1"]["kernel"])[3]
     depths = []
     for li in range(sum(k.startswith("layer") for k in params["swin"])):
         lp = params["swin"][f"layer{li}"]
         depths.append(2 * np.shape(lp["pairs"]["block_w"]["norm1"]["scale"])[0]
                       if "pairs" in lp else sum(k.startswith("block") for k in lp))
     return dict(n_feat=int(n_feat),
-                n_sequence=int(np.shape(params["fusion"]["kernel"])[2] // (4 * n_feat)),
+                n_sequence=int(fusion[2] // (4 * n_feat)),
                 embed_dim=int(np.shape(params["swin"]["conv_first"]["kernel"])[3]),
                 depths=[int(d) for d in depths],
                 n_resblock=len(params["recons_net"]["in_res"]))
@@ -157,6 +170,18 @@ def from_flax_params(params: Dict[str, Any], batch_stats: Dict[str, Any],
     sd["search23.bias"] = torch.zeros_like(sd["search13.bias"])
     _put(sd, "SelfTransfer.search1", _conv(params["transfer"]["self_search1"]))
     _put(sd, "SelfTransfer.search2", _conv(params["transfer"]["self_search2"]))
+    return sd
+
+
+def swint_from_flax(params: Dict[str, Any], batch_stats: Dict[str, Any],
+                    depths: Sequence[int] = (6, 6, 6, 6, 6, 6),
+                    n_resblock: int = 3) -> Dict[str, torch.Tensor]:
+    """The speinet_tpu SWINT tree (params, batch_stats) as a state_dict
+    that the port's SWINT loads with strict=True."""
+    sd: Dict[str, torch.Tensor] = {}
+    _recons(sd, params["recons_net"], batch_stats["recons_net"], n_resblock)
+    _swin(sd, params["swin"], depths)
+    _put(sd, "conv", _conv(params["conv"]))
     return sd
 
 

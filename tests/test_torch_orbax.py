@@ -53,8 +53,9 @@ def test_orbax_checkpoint_converts_and_loads(tmp_path, capsys, jax_side, kind):
         assert orbax_to_torch.main([str(tmp_path / "model" / "model_best"), str(pt)]) == 0
         assert '"n_sequence": 3' in capsys.readouterr().out
     else:
-        shape = orbax_to_torch.convert(str(tmp_path / "model" / "model_latest"), str(pt))
-        assert shape == dict(n_feat=8, n_sequence=3, embed_dim=32, depths=[2],
+        name, shape = orbax_to_torch.convert(str(tmp_path / "model" / "model_latest"),
+                                             str(pt))
+        assert name == "SPEINet" and shape == dict(n_feat=8, n_sequence=3, embed_dim=32, depths=[2],
                              n_resblock=3)
     port = SPEINet(**TINY)
     port.load_state_dict(torch.load(pt, weights_only=True), strict=True)

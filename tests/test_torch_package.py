@@ -24,7 +24,10 @@ def test_fresh_import_leaves_jax_out():
     code = ("import sys\n"
             "import speinet_tpu_torch, speinet_tpu_torch.infer, "
             "speinet_tpu_torch.kernels, speinet_tpu_torch.utils.convert, "
-            "speinet_tpu_torch.ops.metrics, speinet_tpu_torch.main_train\n"
+            "speinet_tpu_torch.ops.metrics, speinet_tpu_torch.main_train, "
+            "speinet_tpu_torch.main_swint, speinet_tpu_torch.models.swint, "
+            "speinet_tpu_torch.detector.train, speinet_tpu_torch.ops.smoothing, "
+            "speinet_tpu_torch.utils.image_utils\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'speinet_tpu' or m.startswith('speinet_tpu.'))\n"
             "assert not bad, bad\n")
@@ -72,6 +75,14 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(tmp_path, monkeypatch):
         main(["--data_path", str(tmp_path), "--cache_pyramids", "--n_feat", "8"])
     inf = Inference(_cfg(), str(tmp_path), "", str(tmp_path / "r"), device="cpu")
     inf.close()
+    from speinet_tpu_torch.detector.train import main as detector_main
+    from speinet_tpu_torch.main_swint import main as swint_main
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        swint_main(["--experiment_dir", str(tmp_path / "exp") + "/"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        detector_main(["--dir-path", str(tmp_path), "--out-dir", str(tmp_path / "p")])
+    assert not (tmp_path / "exp").exists() and not (tmp_path / "p").exists()
 
 
 @pytest.mark.parametrize("argv,dtype", [
