@@ -77,7 +77,21 @@ toolkit. In order it:
    drops the dx shift; the backward timed;
 7. `profile`: `--profile`'s torch.profiler trace of a 2-window run of the
    cached engine, which must name the port's kernels;
-8. prints the `kernels` JSON line, the card's name and power limit, and as
+8. `dist`: the data-parallel paths in a world-size-1 nccl group opened as
+   torchrun's processes open theirs: 3 train steps of the template (batch
+   20, patch 200) under the group against the same 3 without one, held
+   within the no-group steps' own repeat-to-repeat spread (losses,
+   parameters, the first step's gradients, running statistics; ms per step
+   of both), launching K3 forward and backward, K5 and K10; the cached and
+   direct engines on the 720p video under the group against the frames of
+   `cached` and `direct` (>= 60 dB; ms per frame); `sharded_conv2d` on
+   [2, 720, 1280, 8] against the unsharded conv;
+9. `pipeline`: `python -m speinet_tpu_torch.pipeline` on a generated tree
+   (2 videos of 30 256x320 frames, template width, 1 epoch of batch 4 at
+   patch 200, training under `torch.distributed.run --nproc_per_node 1`):
+   every stage exits 0 (its seconds printed), and the inference stage's
+   frames are those of the trained model_best, not of a random init;
+10. prints the `kernels` JSON line, the card's name and power limit, and as
    the last line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero; without CUDA, or outside a checkout,
@@ -1704,6 +1718,347 @@ def check_profile(cfg, frames):
                 port_kernels=port)
 
 
+# --- data parallelism and the pipeline ----------------------------------------
+
+def dist_batch(cfg, n: int):
+    """A batch of n windows at the template's patch on the card: [n, 5, 3, p,
+    p] in [0, rgb_range] (every third window's pre-sharp frame zeroed, so it
+    routes to the self reference) and the centre frames as ground truth."""
+    import numpy as np
+    import torch
+
+    p = cfg.patch_size
+    frames = np.stack([f.transpose(2, 0, 1) for f in synthetic_video(n + 4, p, p, 4)])
+    x = np.stack([frames[i:i + 5] for i in range(n)]).astype(np.float32)
+    x *= cfg.rgb_range / 255.0
+    x[::3, 3] = 0.0
+    x = torch.from_numpy(x).cuda()
+    return x, x[:, 1].clone()
+
+
+def dist_steps(cfg, state, x, gt, n_steps: int = 3, deterministic: bool = False):
+    """n_steps train steps of the template's model from `state` on one batch,
+    DropPath and HEM drawing from a card generator seeded 7, each ended by a
+    device sync; with `deterministic`, under torch's deterministic
+    algorithms (cuDNN's deterministic convolutions, sorted scatter-adds;
+    warn-only for an op that has none). Returns the losses, ms per step,
+    the first step's gradients, the state after, and the launch counts
+    (forward, backward) of the run."""
+    import torch
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    torch.backends.cudnn.deterministic = deterministic
+    if deterministic:
+        torch.backends.cudnn.benchmark = False
+    try:
+        return _dist_steps(cfg, state, x, gt, n_steps)
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = was[2:]
+
+
+def _dist_steps(cfg, state, x, gt, n_steps):
+    import torch
+    from speinet_tpu_torch.kernels import BACKWARD_LAUNCHES, LAUNCHES, reset_launches
+    from speinet_tpu_torch.models import make_model
+    from speinet_tpu_torch.training.loss import LossComputer
+    from speinet_tpu_torch.training.train_state import make_optimizer, train_step
+
+    model = make_model(cfg).cuda()
+    model.load_state_dict(state)
+    opt = make_optimizer(cfg, model)
+    loss = LossComputer(cfg.loss, rgb_range=cfg.rgb_range)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    losses, ms, grads = [], [], None
+    torch.cuda.synchronize()
+    reset_launches()
+    for _ in range(n_steps):
+        t0 = time.time()
+        total, _ = train_step(model, opt, loss, x, gt, gen)
+        torch.cuda.synchronize()
+        ms.append((time.time() - t0) * 1e3)
+        losses.append(total.item())
+        if grads is None:
+            grads = {n: p.grad.detach().double().flatten()
+                     for n, p in model.named_parameters() if p.grad is not None}
+    counts, backward = dict(LAUNCHES), dict(BACKWARD_LAUNCHES)
+    after = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return losses, ms, grads, after, counts, backward
+
+
+def open_world_of_one():
+    """A world-size-1 nccl group opened the way torchrun's processes open
+    theirs: `maybe_init_distributed` reading RANK, WORLD_SIZE, LOCAL_RANK and
+    MASTER_ADDR / MASTER_PORT (a free port on localhost), which are removed
+    again so the pipeline's processes do not see them."""
+    import os
+    import socket
+
+    from speinet_tpu_torch.parallel.mesh import maybe_init_distributed, world
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+               MASTER_PORT=str(port))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        dev = maybe_init_distributed("cuda")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    if str(dev) != "cuda:0" or world() != 1:
+        raise AssertionError(f"world of one: device {dev}, world {world()}")
+    return dev
+
+
+def compare_steps(run, ref, state, params):
+    """How far `run` (dist_steps' result) is from `ref`: each step's loss
+    (relative), the first step's gradient cosine and norm ratio per group
+    of tensors (GRAD_GROUPS), each parameter tensor's cosine after the
+    steps, and the running statistics' largest difference over each
+    tensor's max."""
+    import torch
+
+    def cos(a, b):
+        return torch.nn.functional.cosine_similarity(a.double().flatten(),
+                                                     b.double().flatten(), dim=0).item()
+
+    g_cos, g_norm = {}, {}
+    for grp, pre in GRAD_GROUPS:
+        names = [n for n in ref[2] if n.startswith(pre)]
+        if names:
+            a = torch.cat([run[2][n] for n in names])
+            b = torch.cat([ref[2][n] for n in names])
+            g_cos[grp] = cos(a, b)
+            g_norm[grp] = (a.norm() / b.norm()).item()
+    stats = [n for n in ref[3] if n.endswith(("running_mean", "running_var"))]
+    moved = [n for n in params if not torch.equal(ref[3][n], state[n].cuda())]
+    return dict(
+        losses_rel=[abs(a - b) / abs(b) for a, b in zip(run[0], ref[0])],
+        grad_cosine=g_cos, grad_norm_ratio=g_norm,
+        param_cosine={n: cos(run[3][n], ref[3][n]) for n in params},
+        update_cosine_lowest=sorted(
+            (cos(run[3][n] - state[n].cuda(), ref[3][n] - state[n].cuda()), n)
+            for n in moved)[:3],
+        running_stats_rel=max((run[3][n] - ref[3][n]).abs().max().item()
+                              / max(ref[3][n].abs().max().item(), 1e-12)
+                              for n in stats))
+
+
+def check_dist(cfg, frames, outputs, train_ms: float):
+    """The data-parallel paths in a world-size-1 nccl group (one card):
+    3 train steps of the template (batch 20, patch 200, bf16, 1*L1+2*HEM,
+    DropPath 0.1) from the same weights, batch and generator seed, under
+    torch's deterministic algorithms without a group, again without one,
+    and under the group; timed without them in runs of 4 steps, the first
+    of each not counted, in turns without, under, without and under the
+    group (ms per step: the mean of each side's 6); the cached and
+    direct engines on the 12-frame 720p video under the group against the
+    frames of the `cached` and `direct` paths without one (>= 60 dB);
+    `sharded_conv2d` on a [2, 720, 1280, 8] tensor against the unsharded
+    depthwise conv.
+
+    The group adds the gates' statistic all-reduces, the gradient
+    all-reduce and the engines' gathers; with one rank each is the
+    identity, and the gates compute sum / count the same way with or
+    without a group, so the group's steps should repeat the no-group ones.
+    The template's randomly initialised step amplifies any rounding: while
+    the gates divided by a host scalar without a group (a reciprocal
+    product on CUDA) and by a device tensor under it, the first step agreed
+    within 2e-6 but the third step's loss differed by 0.4-5% and a gate's
+    running variance by 4-15%; two no-group runs outside the deterministic
+    algorithms (atomic adds in their backwards) differed by 0.02-2% there.
+    Under them the three runs agreed bit for bit on the card. The
+    tolerances, each the larger of
+    a floor and 4 x the no-group repeat's own difference: the first step's
+    loss 1e-4 relative; its gradient per group (GRAD_GROUPS) 1 - cos 1e-4
+    and norm 0.5% (an average over a wrong count moves the norm); after the
+    3 steps each loss 1e-3 relative, each parameter tensor 1 - cos 1e-4,
+    the running statistics 1e-4 of their max. A gate whose statistics stay
+    local (the fault tests/test_torch_dist.py plants and catches on two
+    gloo ranks) is the global batch's statistic in a world of one, so no
+    card run of one rank can show it."""
+    import torch
+    from speinet_tpu_torch.models import make_model
+    from speinet_tpu_torch.models.speinet import init_weights
+    from speinet_tpu_torch.ops.filters import depthwise_conv2d
+    from speinet_tpu_torch.parallel.halo import sharded_conv2d
+    from speinet_tpu_torch.parallel.mesh import close_group
+
+    state = init_weights(make_model(cfg), cfg.seed).state_dict()
+    params = [n for n, _ in make_model(cfg).named_parameters()]
+    x, gt = dist_batch(cfg, cfg.batch_size)
+    plain = dist_steps(cfg, state, x, gt, deterministic=True)
+    repeat = dist_steps(cfg, state, x, gt, deterministic=True)
+    # timed runs of 4 steps, the first (algorithm choice, buffers) not
+    # counted, in turns: without, under, without, under the group
+    timed = [dist_steps(cfg, state, x, gt, n_steps=4)]
+    t0 = time.time()
+    open_world_of_one()
+    init_s = time.time() - t0
+    try:
+        grouped = dist_steps(cfg, state, x, gt, deterministic=True)
+        grouped_timed = [dist_steps(cfg, state, x, gt, n_steps=4)]
+        engines = {}
+        for path, cached in (("cached", True), ("direct", False)):
+            inf, counts, wall, psnr, ssim, out = run_main_path(cfg, frames,
+                                                               cache_pyramids=cached)
+            engines[path] = dict(
+                launches=counts, wall_s=wall,
+                ms_per_frame={k: v / len(frames) * 1e3
+                              for k, v in inf.stage_seconds.items() if v},
+                psnr_vs_no_group_db=min(psnr_db(out[k], outputs[path][k])
+                                        for k in outputs[path]))
+        g = torch.Generator(device="cuda").manual_seed(3)
+        xh = torch.rand((2, 720, 1280, 8), generator=g, device="cuda")
+        k = torch.rand((5, 5), generator=g, device="cuda")
+        want = depthwise_conv2d(xh.permute(0, 3, 1, 2), k).permute(0, 2, 3, 1)
+        halo_err = (sharded_conv2d(k)(xh) - want).abs().max().item()
+    finally:
+        close_group()
+    timed.append(dist_steps(cfg, state, x, gt, n_steps=4))
+    open_world_of_one()
+    try:
+        grouped_timed.append(dist_steps(cfg, state, x, gt, n_steps=4))
+    finally:
+        close_group()
+
+    got = compare_steps(grouped, plain, state, params)
+    base = compare_steps(repeat, plain, state, params)
+    p_slack = sorted((1 - got["param_cosine"][n])
+                     / max(1e-4, 4 * (1 - base["param_cosine"][n])) for n in params)
+    steady = lambda runs: [ms for run in runs for ms in run[1][1:]]
+    ms_plain = sum(steady(timed)) / len(steady(timed))
+    ms_group = sum(steady(grouped_timed)) / len(steady(grouped_timed))
+    summary = lambda c: dict(
+        c, param_cosine_lowest=sorted((v, n) for n, v in c["param_cosine"].items())[:3],
+        param_cosine=None)
+    record = dict(
+        group_init_s=init_s, steps=len(plain[0]), batch=cfg.batch_size,
+        patch=cfg.patch_size, loss=cfg.loss, losses_no_group=plain[0],
+        losses_no_group_repeat=repeat[0], losses_group=grouped[0],
+        group_vs_no_group=summary(got), repeat_vs_no_group=summary(base),
+        param_cosine_worst_share_of_tolerance=p_slack[-1],
+        step_ms_deterministic=dict(no_group=plain[1], no_group_repeat=repeat[1],
+                                   group=grouped[1]),
+        step_ms_no_group=[run[1] for run in timed],
+        step_ms_group=[run[1] for run in grouped_timed],
+        ms_per_step_no_group=ms_plain,
+        ms_per_step_group=ms_group, group_overhead=ms_group / ms_plain - 1.0,
+        train_phase_ms_per_step=train_ms,
+        launches=grouped_timed[0][4], backward_launches=grouped_timed[0][5],
+        engines=engines,
+        halo=dict(shape=[2, 720, 1280, 8], kernel=[5, 5], max_abs_err=halo_err),
+        local_stats_fault="a world of one cannot show it (its local batch is the "
+                          "global batch); tests/test_torch_dist.py catches it on "
+                          "two gloo ranks")
+    bad = []
+    if got["losses_rel"][0] > 1e-4:
+        bad.append("first step's loss")
+    for grp, c in got["grad_cosine"].items():
+        if 1 - c > max(1e-4, 4 * (1 - base["grad_cosine"][grp])) or abs(
+                got["grad_norm_ratio"][grp] - 1) > max(
+                5e-3, 4 * abs(base["grad_norm_ratio"][grp] - 1)):
+            bad.append(f"first step's gradient ({grp})")
+    if any(r > max(1e-3, 4 * b) for r, b in zip(got["losses_rel"], base["losses_rel"])):
+        bad.append("losses")
+    if p_slack[-1] > 1.0:
+        bad.append("parameter cosine")
+    if got["running_stats_rel"] > max(1e-4, 4 * base["running_stats_rel"]):
+        bad.append("running statistics")
+    if min(e["psnr_vs_no_group_db"] for e in engines.values()) < 60.0:
+        bad.append("engines under the group")
+    if halo_err > 1e-5:
+        bad.append("halo")
+    missing = [k for k in TRAIN_LAUNCHES["SPEINet"] if grouped_timed[0][4][k] <= 0]
+    if grouped_timed[0][5]["roll2d"] <= 0:
+        missing.append("roll2d (backward)")
+    if bad or missing:
+        raise AssertionError(f"dist: {bad}, not launched {missing}: {record}")
+    return record
+
+
+def check_pipeline():
+    """`python -m speinet_tpu_torch.pipeline` on a tree it generates (2
+    videos of 30 frames at 256x320), template width, 1 epoch of batch 4 at
+    patch 200, the train stage under `torch.distributed.run --nproc_per_node
+    1`: every stage must exit 0, the inference stage must read the trained
+    model_best (its log names it), and its frames must be the trained
+    model's: its per-frame PSNRs equal those of the same engine restoring
+    with model_best here, and differ from those of the seeded random init.
+    The stages' kernel launches happen in their own processes and are not
+    counted here."""
+    import glob
+    import os
+    import re
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from speinet_tpu_torch.config import Config, set_template
+    from speinet_tpu_torch.infer import Inference
+    from speinet_tpu_torch.utils.image_io import imread
+
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.time()
+        run = subprocess.run(
+            [sys.executable, "-m", "speinet_tpu_torch.pipeline", "--work", work,
+             "--n_videos", "2", "--n_frames", "30", "--epochs", "1",
+             "--batch_size", "4", "--patch_size", "200", "--dp_devices", "1"],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        wall = time.time() - t0
+        out = run.stdout
+        if run.returncode != 0:
+            raise AssertionError(f"pipeline exit {run.returncode}:\n{out[-4000:]}\n"
+                                 f"{run.stderr[-4000:]}")
+        seconds = {m.group(1): float(m.group(2)) for m in re.finditer(
+            r"=== pipeline stage (\w+): exit 0 in ([0-9.]+) s ===", out)}
+        if set(seconds) != {"generate", "detector", "train", "infer"}:
+            raise AssertionError(f"pipeline stages {seconds}:\n{out[-4000:]}")
+        best = os.path.join(work, "experiment", "run", "model", "model_best")
+        logs = glob.glob(os.path.join(work, "results", "inference_log_*.txt"))
+        text = open(logs[0]).read() if len(logs) == 1 else ""
+        if f"Loading model from {best}" not in text:
+            raise AssertionError(f"the inference stage did not read {best}: {logs}")
+        logged = [float(v) for v in re.findall(r"PSNR=([0-9.]+), SSIM", text)]
+        tree = os.path.join(work, "rs")
+        cfg = set_template(Config(template="SPEINet")).replace(
+            compute_dtype="bfloat16", n_threads=4)
+        video = sorted(os.listdir(os.path.join(tree, "blur")))[0]
+        keys = sorted(glob.glob(os.path.join(tree, "blur", video, "*")))
+        gts = sorted(glob.glob(os.path.join(tree, "gt", video, "*")))
+        labels = np.load(os.path.join(tree, "label", video + ".npy"))
+        psnr = {}
+        for name, path in (("trained", best), ("random", "")):
+            inf = Inference(cfg, tree, path, os.path.join(work, name),
+                            save_image=False, device="cuda", seed=0)
+            try:
+                with ThreadPoolExecutor(max_workers=4) as pool:
+                    psnr[name] = inf.infer_video(video, keys, gts, labels, imread,
+                                                 pool)[0]
+            finally:
+                inf.close()
+    n = len(psnr["trained"])
+    # the log prints 5 significant digits
+    same = len(logged) >= n and np.allclose(psnr["trained"], logged[:n], atol=2e-3)
+    differs = float(np.max(np.abs(np.subtract(psnr["trained"], psnr["random"]))))
+    record = dict(wall_s=wall, stage_seconds=seconds, frames_logged=len(logged),
+                  mean_psnr_trained=float(np.mean(psnr["trained"])),
+                  mean_psnr_random_init=float(np.mean(psnr["random"])),
+                  max_psnr_change_vs_random_init=differs, log_matches_trained=same)
+    if not same or differs < 1e-3:
+        raise AssertionError(f"pipeline inference frames: {record}")
+    return record
+
+
 def cfg_template():
     """The SPEINet template, in bf16, as every phase runs it."""
     from speinet_tpu_torch.config import Config, set_template
@@ -1928,6 +2283,29 @@ def main() -> int:
         for row in rows:
             print(f"{name} (train shape) {json.dumps(row)}", flush=True)
     print(f"train shapes: checked in {time.time() - t1:.1f} s", flush=True)
+
+    # the data-parallel paths in a world of one, then the pipeline script;
+    # launch counts of the group's train steps and engines reset before each
+    t1 = time.time()
+    dist_rec = check_dist(cfg, frames, {p: outputs[p] for p in ("cached", "direct")},
+                          records["train"]["ms_per_step"])
+    print("dist: " + json.dumps(dist_rec), flush=True)
+    print(f"dist (world of one, nccl): {dist_rec['ms_per_step_group']:.1f} ms per "
+          f"step under the group, {dist_rec['ms_per_step_no_group']:.1f} without "
+          f"({100 * dist_rec['group_overhead']:+.2f}%); ms per 720p frame under the "
+          "group " + json.dumps({p: e["ms_per_frame"]
+                                 for p, e in dist_rec["engines"].items()})
+          + f"; {smi}", flush=True)
+    print(f"dist: checked in {time.time() - t1:.1f} s", flush=True)
+    for name, c in (("dist_train", dist_rec["launches"]),
+                    ("dist_cached", dist_rec["engines"]["cached"]["launches"]),
+                    ("dist_direct", dist_rec["engines"]["direct"]["launches"])):
+        by_path[name] = c
+        for k in launches:
+            launches[k] += c[k]
+    t1 = time.time()
+    print("pipeline: " + json.dumps(check_pipeline()), flush=True)
+    print(f"pipeline: checked in {time.time() - t1:.1f} s", flush=True)
 
     meta = {
         "conv2d": ("speinet_tpu_torch/csrc/conv.cu",

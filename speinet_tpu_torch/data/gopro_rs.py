@@ -9,8 +9,9 @@ sharp step averages a random window of 1..threshold frames, a blurry one
 threshold+1..window_range[1] frames; the blurry frame is the window's mean
 and its ground truth the window's centre. Every draw comes from one
 `np.random.Generator` in the JAX package's order, so one seed gives the same
-labels and frames in both packages. imageio reads and writes the PNGs; it
-is imported only where files are read or written.
+labels and frames in both packages. `make_sharp_videos` makes synthetic
+sharp videos to feed it (the pipeline's generation stage). Pillow reads and
+writes the PNGs (`utils/image_io.py`).
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import shutil
 from typing import List, Sequence, Tuple
 
 import numpy as np
+
+from speinet_tpu_torch.utils.image_io import imread, imwrite
 
 # per-split ratio menus (parity: mix_choice_dataset.py:137-155): train and
 # test draw one of {0.1, 0.3, 0.5} per video, val is fixed at 0.5
@@ -60,15 +63,13 @@ def generate_dataset(src_dir: str, out_dir: str,
     from `src_dir`'s per-video folders of sharp frames. With `mixed` one
     ratio is drawn per video (mix_choice_dataset.py), else ratios[0] holds
     for all. Returns the videos written."""
-    import imageio.v2 as imageio
-
     rng = np.random.default_rng(seed)
     written = []
     for v in sorted(os.listdir(src_dir)):
         vdir = os.path.join(src_dir, v)
         if not os.path.isdir(vdir):
             continue
-        frames = [imageio.imread(os.path.join(vdir, n)) for n in sorted(os.listdir(vdir))]
+        frames = [imread(os.path.join(vdir, n)) for n in sorted(os.listdir(vdir))]
         ratio = float(rng.choice(ratios)) if mixed else float(ratios[0])
         blur, gt, labels = generate_blurry_sequence(frames, ratio, rng)
         dirs = {kind: os.path.join(out_dir, kind, v) for kind in ("blur", "gt")}
@@ -77,8 +78,8 @@ def generate_dataset(src_dir: str, out_dir: str,
             os.makedirs(d, exist_ok=True)
         for i in range(len(labels)):
             for kind, arr in (("blur", blur), ("gt", gt)):
-                imageio.imwrite(os.path.join(dirs[kind], f"{i:08d}.png"),
-                                np.clip(arr[i], 0, 255).astype(np.uint8))
+                imwrite(os.path.join(dirs[kind], f"{i:08d}.png"),
+                        np.clip(arr[i], 0, 255).astype(np.uint8))
         np.save(os.path.join(ldir, v + ".npy"), labels)
         written.append(v)
     return written
@@ -133,3 +134,52 @@ def split_dataset(root: str, out_train: str, out_val: str,
         os.makedirs(os.path.join(dst, "label"), exist_ok=True)
         shutil.copy(os.path.join(root, "label", v + ".npy"),
                     os.path.join(dst, "label", v + ".npy"))
+
+
+def make_sharp_videos(root, n_videos=4, n_frames=150, h=256, w=320, seed=7,
+                      style="lowpass", drift=(2, 5, 1, 4)):
+    """Synthetic sharp videos under `root/video{v:02d}/{i:05d}.png`: a
+    drifting texture, enough structure for deblurring to be learnable and
+    cheap to make (port of `scripts/quality_evidence.py::make_sharp_videos`,
+    the same draws from one seed, so the same frames).
+
+    style="lowpass": a band-limited Gaussian field. style="natural": a 1/f
+    spectrum with hard-edged shapes and fine grain, closer to street-scene
+    statistics. drift=(dx_lo, dx_hi, dy_lo, dy_hi): each video's drift in
+    pixels per frame is drawn from these ranges."""
+    rng = np.random.default_rng(seed)
+    yy0, xx0 = np.mgrid[0:h, 0:w]
+    for v in range(n_videos):
+        d = os.path.join(root, f"video{v:02d}")
+        os.makedirs(d, exist_ok=True)
+        # a periodic random field, so the drift is a roll
+        base = rng.standard_normal((h, w, 3))
+        f = np.fft.rfft2(base, axes=(0, 1))
+        yy = np.fft.fftfreq(h)[:, None, None]
+        xx = np.fft.rfftfreq(w)[None, :, None]
+        if style == "natural":
+            rad = np.sqrt(yy * yy + xx * xx)
+            f *= 1.0 / np.maximum(rad, 1.0 / max(h, w))
+        else:
+            f *= np.exp(-((yy * 14) ** 2 + (xx * 14) ** 2))
+        tex = np.fft.irfft2(f, s=(h, w), axes=(0, 1))
+        tex = (tex - tex.min()) / (np.ptp(tex) + 1e-9)
+        if style == "natural":
+            for _ in range(12):
+                cy, cx = rng.integers(0, h), rng.integers(0, w)
+                r = int(rng.integers(8, 40))
+                col = rng.random(3)
+                if rng.random() < 0.5:
+                    m = ((np.abs(((yy0 - cy + h // 2) % h) - h // 2) < r)
+                         & (np.abs(((xx0 - cx + w // 2) % w) - w // 2) < r))
+                else:
+                    dyy = ((yy0 - cy + h // 2) % h) - h // 2
+                    dxx = ((xx0 - cx + w // 2) % w) - w // 2
+                    m = dyy * dyy + dxx * dxx < r * r
+                tex[m] = 0.7 * tex[m] + 0.3 * col
+            tex = np.clip(tex + 0.03 * rng.standard_normal((h, w, 3)), 0, 1)
+        dx = int(rng.integers(drift[0], drift[1]))
+        dy = int(rng.integers(drift[2], drift[3]))
+        for i in range(n_frames):
+            img = np.roll(tex, (i * dy, i * dx), axis=(0, 1))
+            imwrite(os.path.join(d, f"{i:05d}.png"), (img * 255).astype(np.uint8))

@@ -6,7 +6,14 @@ worker processes); each sample's crop and augmentation draw from a numpy
 generator seeded by (seed, epoch, index), so an epoch's batches do not
 depend on the thread schedule. `prefetch_to_device` moves batches to the
 device a few ahead of use: pinned host memory and non-blocking copies on a
-card. The port runs on one card, so there is no per-process sharding.
+card.
+
+Data parallelism (parity: speinet_tpu/data/loader.py:8-14): every process
+builds the same shuffled order (seed and epoch only) and loads only its
+`process_index::process_count` stride of each global batch. The global
+batch of a step is the processes' batches concatenated in process order,
+as `jax.make_array_from_process_local_data` assembles it; `Data` takes the
+process index and count from the process group (`parallel/mesh.py`).
 """
 
 from __future__ import annotations
@@ -21,13 +28,15 @@ import torch
 
 from speinet_tpu_torch.config import Config
 from speinet_tpu_torch.data.videodata import VideoDataset
+from speinet_tpu_torch.parallel.mesh import rank, world
 
 
 class BatchIterator:
     """Shuffled epoch iterator producing stacked numpy batches."""
 
     def __init__(self, dataset: VideoDataset, batch_size: int, shuffle: bool,
-                 seed: int, n_threads: int = 8, drop_last: bool = False):
+                 seed: int, n_threads: int = 8, drop_last: bool = False,
+                 process_index: int = 0, process_count: int = 1):
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -35,6 +44,16 @@ class BatchIterator:
         self.epoch = 0
         self.n_threads = n_threads
         self.drop_last = drop_last
+        self.process_index = process_index
+        self.process_count = process_count
+        if process_count > 1:
+            if batch_size % process_count:
+                raise ValueError(
+                    f"batch_size {batch_size} must divide evenly over "
+                    f"{process_count} processes")
+            if not drop_last:
+                raise ValueError("multi-host loading requires drop_last so "
+                                 "every process sees equal shards")
 
     def __len__(self):
         n = len(self.ds)
@@ -58,6 +77,8 @@ class BatchIterator:
                 chunk = order[start : start + self.batch_size]
                 if self.drop_last and len(chunk) < self.batch_size:
                     break
+                # this process decodes only its stride of the global batch
+                chunk = chunk[self.process_index::self.process_count]
                 samples = list(pool.map(fetch, chunk))
                 inputs = np.stack([s[0] for s in samples])
                 gts = np.stack([s[1] for s in samples])
@@ -137,7 +158,8 @@ class Data:
             self.loader_train = BatchIterator(make_dataset(cfg, cfg.data_train, True),
                                               cfg.batch_size, shuffle=True,
                                               seed=cfg.seed, n_threads=cfg.n_threads,
-                                              drop_last=True)
+                                              drop_last=True, process_index=rank(),
+                                              process_count=world())
         else:
             self.loader_train = None
         self.loader_test = BatchIterator(make_dataset(cfg, cfg.data_test, False), 1,

@@ -17,7 +17,7 @@ The reference's quirks are preserved where they define semantics:
   there and stays off here)
 - train __len__ = num_frame * 2, test __len__ = num_frame - 2
   (videodata_nfs.py:209-213)
-Frames are read by `_imread` (imageio, imported there); a subclass may
+Frames are read by `_imread` (Pillow, `utils/image_io.py`); a subclass may
 serve them from memory instead.
 """
 
@@ -32,6 +32,7 @@ import numpy as np
 
 from speinet_tpu_torch.config import Config
 from speinet_tpu_torch.data.indices import frame_number, return_blurry_indices
+from speinet_tpu_torch.utils.image_io import imread
 
 
 def np2float(img: np.ndarray, rgb_range: float = 1.0) -> np.ndarray:
@@ -158,9 +159,7 @@ class VideoDataset:
     def _imread(self, path: str) -> np.ndarray:
         if self._cache is not None and path in self._cache:
             return self._cache[path]
-        import imageio.v2 as imageio
-
-        return imageio.imread(path)
+        return imread(path)
 
     # -- indexing ------------------------------------------------------------
     def __len__(self):

@@ -12,8 +12,8 @@
   classifier against the ground-truth labels, with timing.
 
 The feature pass runs batched on `device` (the card unless the caller asks
-for the CPU); the fits are host numpy. imageio is imported only where
-frames are read.
+for the CPU); the fits are host numpy. Pillow reads the frames
+(`utils/image_io.py`).
 
     python -m speinet_tpu_torch.detector.train --dir-path <sharp-videos> \\
         --kernel-size 11 --ratio 0.5 --out-dir pickles/ [--device cpu]
@@ -36,6 +36,7 @@ from speinet_tpu_torch.detector.classifier import (DecisionTree, RandomForest,
                                                    binary_metrics,
                                                    fit_logistic_regression)
 from speinet_tpu_torch.detector.features import focus_features
+from speinet_tpu_torch.utils.image_io import imread
 from speinet_tpu_torch.utils.device import resolve_device
 
 # --grid: the reference's sweep of 8 ratios x 7 kernel sizes (run_detector.sh)
@@ -58,9 +59,7 @@ def video_features(frames: np.ndarray, kernel_size: int, batch: int = 16,
 
 
 def _read_frames(folder: str) -> list:
-    import imageio.v2 as imageio
-
-    return [imageio.imread(p) for p in sorted(glob.glob(os.path.join(folder, "*")))]
+    return [imread(p) for p in sorted(glob.glob(os.path.join(folder, "*")))]
 
 
 def collate_synthetic(sharp_dir: str, ratio: float, kernel_size: int,

@@ -25,7 +25,19 @@ work as well as the PNG tree of the CLI.
         [--n_sequence 3] [--profile trace_dir]
 
 On the card the CLI computes in bfloat16 unless --compute_dtype says
-otherwise; with --device cpu it keeps the config's float32.
+otherwise; with --device cpu it keeps the config's float32. `--model_path`
+takes a port state_dict or a trainer checkpoint (its `model` entry).
+
+Data parallelism (parity: speinet_tpu/infer.py:93-135): under torchrun
+(`torchrun --standalone --nproc_per_node N -m speinet_tpu_torch.infer ...`)
+each process takes cuda:LOCAL_RANK, `batch_windows` is rounded up to a
+multiple of N, and each rank restores its rows of every window batch, the
+outputs gathered back in order (`parallel/mesh.py::shard_rows`). The cached
+engine's legs and anchors run on every rank, as they run replicated on the
+JAX mesh. With `--chop` the windows are not split; the 4B tiles of each
+chopped forward are (`parallel/chop.py`). Rank 0 alone writes images and
+logs; every rank scores every frame.
+
 `--swin_fuse_block`, `--corr_raw`, `--corr_banded` and `--corr_scaled` (0 or
 1, default 1) choose among the kernel paths as the JAX package's
 SPEINET_SWIN_FUSEBLOCK, SPEINET_CORR_RAW, SPEINET_CORR_BANDED and
@@ -51,7 +63,10 @@ from speinet_tpu_torch.detector.train import video_features
 from speinet_tpu_torch.models.speinet import SPEINet, init_weights
 from speinet_tpu_torch.ops.metrics import psnr_uint8_host, ssim_matlab
 from speinet_tpu_torch.parallel.chop import chop_forward
-from speinet_tpu_torch.utils.device import resolve_device
+from speinet_tpu_torch.parallel.mesh import (active, dp_world, is_main,
+                                             maybe_init_distributed, shard_rows)
+from speinet_tpu_torch.utils.checkpoint import model_state_dict
+from speinet_tpu_torch.utils.image_io import imread, imwrite
 
 # --default_data presets: (data_path, result_path) relative to the working
 # tree (parity: inference_SPEINet.py:626-697, which hardcodes user paths)
@@ -62,12 +77,6 @@ PRESETS = {
     "BSDtest_all": ("./data/deblur/BSDtest_all/BSD_3ms24ms",
                     "./infer_results/bsd_3ms24ms"),
 }
-
-
-def _read_png(path: str) -> np.ndarray:
-    import imageio.v2 as imageio
-
-    return imageio.imread(path)
 
 
 def _frame_number(path: str) -> int:
@@ -119,19 +128,25 @@ def window_metas(padded_inputs: Sequence[str], pre_lists, sub_lists,
 
 
 class TraverseLogger:
-    """Parity: inference_SPEINet.py:26-34."""
+    """Parity: inference_SPEINet.py:26-34. Under a process group rank 0 alone
+    prints and writes."""
 
     def __init__(self, result_dir: str, filename: str):
         self.path = os.path.join(result_dir, filename)
-        self.f = open(self.path, "a" if os.path.exists(self.path) else "w")
+        self.f = None
+        if is_main():
+            self.f = open(self.path, "a" if os.path.exists(self.path) else "w")
 
     def write_log(self, log: str) -> None:
+        if self.f is None:
+            return
         print(log, flush=True)
         self.f.write(log + "\n")
         self.f.flush()
 
     def close(self) -> None:
-        self.f.close()
+        if self.f is not None:
+            self.f.close()
 
 
 class Inference:
@@ -145,7 +160,8 @@ class Inference:
         if cache_pyramids and (self_ensemble or cfg.chop):
             raise ValueError("--self_ensemble and --chop run on the direct "
                              "engine; drop --cache_pyramids")
-        self.device = resolve_device(device)
+        # under torchrun: the group opened, cuda:LOCAL_RANK on the card
+        self.device = maybe_init_distributed(device)
         if self.device.type == "cuda" and cfg.compute_dtype != "bfloat16":
             raise ValueError("the port's CUDA kernels take bfloat16: run with "
                              "compute_dtype='bfloat16' on the card")
@@ -155,6 +171,10 @@ class Inference:
         self.save_image = save_image
         self.border = border
         self.batch_windows = max(1, batch_windows)
+        n_dp = dp_world(cfg.dp_devices)
+        if n_dp > 1 and not cfg.chop and self.batch_windows % n_dp:
+            # round the window batch up to fill the group (infer.py:98-100)
+            self.batch_windows = -(-self.batch_windows // n_dp) * n_dp
         self.cache_pyramids = cache_pyramids
         self.self_ensemble = self_ensemble
         self.detector_pickle = detector_pickle
@@ -162,7 +182,8 @@ class Inference:
         self.input_path = os.path.join(data_path, "blur")
         self.gt_path = os.path.join(data_path, "gt")
         self.label_path = os.path.join(data_path, "label")
-        os.makedirs(result_path, exist_ok=True)
+        if is_main():
+            os.makedirs(result_path, exist_ok=True)
 
         now = time.strftime("%Y-%m-%d %H:%M:%S", time.localtime())
         self.logger = TraverseLogger(result_path, f"inference_log_{now}.txt")
@@ -180,13 +201,14 @@ class Inference:
             cfg, swin_fuse_block=swin_fuse_block, corr_raw=corr_raw,
             corr_banded=corr_banded, corr_scaled=corr_scaled)
         if model_path:
-            self.model.load_state_dict(
-                torch.load(model_path, map_location="cpu", weights_only=True),
-                strict=True)
+            self.model.load_state_dict(model_state_dict(model_path), strict=True)
         else:
             init_weights(self.model, seed)     # random init (smoke / demo mode)
         self.model.to(self.device).eval()
         self.logger.write_log(f"Loading model from {model_path}")
+        if active():
+            self.logger.write_log(f"dp group: {n_dp} device(s), "
+                                  f"batch_windows={self.batch_windows}")
         # seconds spent in each engine stage, each ended by a device sync:
         # the cached engine's legs / anchor / restore, the direct forward
         self.stage_seconds = {"legs": 0.0, "anchor": 0.0, "restore": 0.0,
@@ -234,12 +256,9 @@ class Inference:
                 self.device), imgs_dev[k]))
             video_psnr.append(psnr)
             video_ssim.append(ssim)
-            if self.save_image:
-                import imageio.v2 as imageio
-
+            if self.save_image and is_main():
                 os.makedirs(os.path.join(self.result_path, v), exist_ok=True)
-                imageio.imwrite(os.path.join(self.result_path, v,
-                                             f"{filename}.png"), img)
+                imwrite(os.path.join(self.result_path, v, f"{filename}.png"), img)
             t_post = time.time()
             self.logger.write_log(
                 f"> {v}-{filename} PSNR={psnr:.5}, SSIM={ssim:.4} "
@@ -250,11 +269,13 @@ class Inference:
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         """[B, 5, 3, H, W] windows -> [B, 3, H, W], chopped and / or
-        self-ensembled as configured."""
-        fwd = self.model
+        self-ensembled as configured; under a process group each rank
+        restores its rows (or with chop, its tiles)."""
         if self.cfg.chop:
             fwd = lambda t: chop_forward(self.model, t, shave=self.cfg.chop_shave)
-        return forward_x8(x, fwd) if self.self_ensemble else fwd(x)
+            return forward_x8(x, fwd) if self.self_ensemble else fwd(x)
+        fwd = (lambda t: forward_x8(t, self.model)) if self.self_ensemble else self.model
+        return shard_rows(fwd, x)
 
     def _prepare_window(self, in_seq, gt_seq, pre_seq, sub_seq, padded_inputs,
                         load):
@@ -382,14 +403,21 @@ class Inference:
             hs = [metas[w][2] for w in wins]
             routing = "sharp" if all(hs) else "self" if not any(hs) else "mixed"
             cat = lambda xs: torch.cat(xs, dim=0)
+            n_nb = n_seq - 1
+
+            def restore(f_mid, *rest):
+                """Under a group on this rank's rows of the chunk only."""
+                return self.model.restore_from_features(
+                    f_mid, list(rest[:n_nb]), *rest[n_nb:n_nb + 3], routing,
+                    rest[-1])
+
             out = self._timed(
-                "restore", self.model.restore_from_features,
+                "restore", shard_rows, restore,
                 cat([feat[metas[w][0]][0] for w in wins]),
-                [cat([feat[metas[w][1][k]][1] for w in wins])
-                 for k in range(n_seq - 1)],
+                *[cat([feat[metas[w][1][k]][1] for w in wins]) for k in range(n_nb)],
                 cat([anchors[metas[w][3]][0] for w in wins]),
                 cat([anchors[metas[w][3]][1] for w in wins]),
-                cat([anchors[metas[w][3]][2] for w in wins]), routing,
+                cat([anchors[metas[w][3]][2] for w in wins]),
                 torch.tensor(hs, device=dev))
             names = [os.path.basename(metas[w][0]).split(".")[0] for w in wins]
             self._score_chunk(v, names, out, [g.result for g in gts], start, t_pre,
@@ -422,8 +450,8 @@ class Inference:
             for v in videos:
                 input_frames = sorted(glob.glob(os.path.join(self.input_path, v, "*")))
                 gt_frames = sorted(glob.glob(os.path.join(self.gt_path, v, "*")))
-                labels = self._labels_for_video(v, input_frames, _read_png)
-                self.infer_video(v, input_frames, gt_frames, labels, _read_png, pool)
+                labels = self._labels_for_video(v, input_frames, imread)
+                self.infer_video(v, input_frames, gt_frames, labels, imread, pool)
         sum_psnr = sum_ssim = 0.0
         n_img = 0
         for k in self.total_psnr:
@@ -474,7 +502,8 @@ def main(argv=None):
                    help="preset: " + " | ".join(PRESETS))
     p.add_argument("--data_path", type=str, default="./dataset/test")
     p.add_argument("--model_path", type=str, default="",
-                   help="a port state_dict (.pt); empty = seeded random init")
+                   help="a port state_dict (.pt) or a trainer checkpoint "
+                        "(model_best, model_latest); empty = seeded random init")
     p.add_argument("--result_path", type=str, default="./infer_results")
     p.add_argument("--detector_pickle", type=str, default="",
                    help="sharpness detector for trees without label/; empty = "

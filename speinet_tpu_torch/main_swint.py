@@ -6,7 +6,8 @@ main_swint.py): `main_train` with the SWINT template.
 
 `--template SWINT` is prepended unless a template is given; every other
 flag, `--device` among them (the card unless `--device cpu`), is
-`main_train`'s.
+`main_train`'s, and so is data parallelism under torchrun
+(`torchrun --standalone --nproc_per_node N -m speinet_tpu_torch.main_swint`).
 """
 
 from __future__ import annotations

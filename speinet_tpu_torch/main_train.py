@@ -13,6 +13,14 @@ unless it is bfloat16. `--device cpu` trains the plain
 float32 path on the CPU. Every other flag is the config's
 (`speinet_tpu_torch/config.py`), `--n_sequence` and a `--loss` spec with
 VGG or GAN terms (`training/loss.py`) among them.
+
+Data-parallel training runs one process per card under torchrun:
+
+    torchrun --standalone --nproc_per_node N -m speinet_tpu_torch.main_train ...
+
+Each process opens the group (nccl on the cards, gloo with `--device cpu`)
+and takes cuda:LOCAL_RANK; `--batch_size` is the global batch, which must
+divide by N, and `--dp_devices` must be 0 or N (`parallel/mesh.py`).
 """
 
 from __future__ import annotations
@@ -27,8 +35,8 @@ from speinet_tpu_torch.config import parse_args
 from speinet_tpu_torch.data.loader import Data
 from speinet_tpu_torch.models import make_model
 from speinet_tpu_torch.models.speinet import init_weights
+from speinet_tpu_torch.parallel.mesh import check_batch, dp_world, maybe_init_distributed
 from speinet_tpu_torch.training.trainer import Trainer
-from speinet_tpu_torch.utils.device import resolve_device
 from speinet_tpu_torch.utils.logging import Logger
 
 
@@ -38,7 +46,9 @@ def main(argv=None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
     args, config_argv = p.parse_known_args(argv)
     cfg = parse_args(config_argv)
-    device = resolve_device(args.device)
+    device = maybe_init_distributed(args.device)
+    n_dp = dp_world(cfg.dp_devices)
+    check_batch(cfg.batch_size)
     if device.type == "cuda" and not any(
             a.split("=")[0] == "--compute_dtype" for a in config_argv):
         cfg = cfg.replace(compute_dtype="bfloat16")   # what the kernels take
@@ -48,6 +58,7 @@ def main(argv=None) -> None:
     chkp = Logger(cfg)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     chkp.write_log(f"devices: [{device} ({name})]")
+    chkp.write_log(f"dp group: {n_dp} device(s)")
     model = init_weights(make_model(cfg), cfg.seed)
     t = Trainer(cfg, Data(cfg), model, chkp, device=device)
     while not t.terminate():

@@ -11,7 +11,8 @@ K1 kernel (`kernels/conv.py`); the gate convs, the transposed convs and the
 `train=True` every conv is a PyTorch conv (the JAX package gates its Pallas
 conv on `not train`, blocks.py:287), and the TripletAttention gates
 normalise with the batch statistics and update their running statistics
-the flax way (momentum 0.99, biased batch variance, blocks.py:357).
+the flax way (momentum 0.99, biased batch variance, blocks.py:357), over
+the global batch under a process group.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from speinet_tpu_torch.kernels import conv2d
+from speinet_tpu_torch.parallel.mesh import active, all_reduce_sum
 
 
 def hwio(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -102,6 +104,23 @@ class GateConv(nn.Module):
 BN_MOMENTUM = 0.99   # flax's convention: new = 0.99 old + 0.01 batch
 
 
+def batch_moments(z: torch.Tensor):
+    """(mean, one-pass biased variance clamped at 0) of z, as flax's
+    BatchNorm computes them, from sum z, sum z^2 and the count. Under a
+    process group they are those of the global batch: one differentiable
+    all-reduce of the three, as XLA's partitioner makes the JAX model's
+    statistics global. The gate computes its own statistics, so
+    nn.SyncBatchNorm would not reach it. The same sums and divisions run
+    with and without a group, so a group of one changes no bit here: the
+    count is a device tensor in both (CUDA divides by a host scalar as a
+    product with its reciprocal, which rounds otherwise)."""
+    total, sq, n = z.sum(), (z * z).sum(), z.new_full((), float(z.numel()))
+    if active():
+        total, sq, n = all_reduce_sum(torch.stack([total, sq, n]))
+    mean = total / n
+    return mean, torch.clamp(sq / n - mean * mean, min=0.0)
+
+
 class AttentionGate(nn.Module):
     """Gate on an already-pooled plane [B, A1, A2, 2] -> [B, A1, A2]: the raw
     batch-normed conv output, no ReLU, no sigmoid (parity: block.py:75-96).
@@ -120,8 +139,7 @@ class AttentionGate(nn.Module):
         z = F.conv2d(pooled.to(dtype).permute(0, 3, 1, 2), conv.weight.to(dtype),
                      padding=conv.padding)[:, 0].float()
         if train:
-            mean = z.mean()
-            var = torch.clamp((z * z).mean() - mean * mean, min=0.0)
+            mean, var = batch_moments(z)
             with torch.no_grad():
                 for run, batch in ((bn.running_mean, mean), (bn.running_var, var)):
                     run.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * batch)

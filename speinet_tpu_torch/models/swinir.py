@@ -40,6 +40,7 @@ from speinet_tpu_torch.kernels import (SwinBlockWeights, ln_mlp, roll2d,
 from speinet_tpu_torch.kernels.swin import (layer_norm, window_mask,
                                             window_partition, window_reverse)
 from speinet_tpu_torch.models.blocks import conv_nhwc
+from speinet_tpu_torch.parallel.mesh import rank, world
 
 
 @functools.lru_cache(maxsize=None)
@@ -310,11 +311,19 @@ class SwinIRCross(nn.Module):
         self.conv_last = nn.Conv2d(embed_dim, in_chans, 3, 1, 1)
 
     def draw_drops(self, batch: int, device: torch.device,
-                   generator: torch.Generator | None):
+                   generator: torch.Generator | None, segments: int = 1):
         """Per layer, per block: None where the rate is 0, else (rate, keep
         [2, batch] bool), drawn on the generator's device and moved to
-        `device`, one row per residual branch."""
+        `device`, one row per residual branch. `batch` stacks `segments`
+        equal segments (one per neighbour stream). Under a process group of
+        P ranks each draw is [2, P batch], the global stacked batch
+        [segment 0 of every rank; segment 1 of every rank; ...], and this
+        rank keeps its columns of each segment, so every rank's generator
+        advances alike and the masks are those of the global batch."""
         gen_dev = generator.device if generator is not None else device
+        p, r = world(), rank()
+        b = batch // segments
+        cols = [slice((k * p + r) * b, (k * p + r + 1) * b) for k in range(segments)]
         drops, off = [], 0
         for depth in self.depths:
             layer = []
@@ -322,7 +331,9 @@ class SwinIRCross(nn.Module):
                 if rate == 0.0:
                     layer.append(None)
                     continue
-                u = torch.rand((2, batch), generator=generator, device=gen_dev)
+                u = torch.rand((2, p * batch), generator=generator, device=gen_dev)
+                if p > 1:
+                    u = torch.cat([u[:, c] for c in cols], dim=1)
                 layer.append((rate, (u < 1.0 - rate).to(device)))
             drops.append(layer)
             off += depth
@@ -330,9 +341,11 @@ class SwinIRCross(nn.Module):
 
     def forward(self, x: torch.Tensor, y: torch.Tensor, dtype: torch.dtype,
                 train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                segments: int = 1) -> torch.Tensor:
         """With `train`, the XLA branch of every block and DropPath masks
-        drawn from `generator` (the default generator if None)."""
+        drawn from `generator` (the default generator if None); the batch
+        stacks `segments` neighbour streams (`draw_drops`)."""
         b, hh, ww, _ = x.shape
         e = self.embed_dim
         x_first = conv_nhwc(x, self.conv_first, dtype)
@@ -351,7 +364,7 @@ class SwinIRCross(nn.Module):
             y_in = (ye, ye_sw)
         else:
             y_in = ye
-        drops = self.draw_drops(b, x.device, generator) if train else \
+        drops = self.draw_drops(b, x.device, generator, segments) if train else \
             [None] * len(self.layers)
         feat = xe
         for layer, layer_drops in zip(self.layers, drops):
@@ -376,7 +389,7 @@ def swin_fuse(swin: SwinIRCross, f_mid: torch.Tensor, neighbor_feats,
     b = f_mid.shape[0]
     x_in = torch.cat([f_mid] * len(neighbor_feats), dim=0)
     y_in = torch.cat(list(neighbor_feats), dim=0)
-    f_trans = swin(x_in, y_in, dtype, train, generator)
+    f_trans = swin(x_in, y_in, dtype, train, generator, len(neighbor_feats))
     parts = [f_mid.to(dtype)] + [f_trans[k * b:(k + 1) * b]
                                  for k in range(len(neighbor_feats))]
     return torch.cat(parts, dim=-1)

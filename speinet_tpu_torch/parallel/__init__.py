@@ -1,1 +1,2 @@
-"""Spatial decomposition of a forward on one card (`chop`)."""
+"""Data parallelism over torch.distributed (`mesh`), the chopped forward
+(`chop`) and halo-exchange spatial sharding (`halo`)."""

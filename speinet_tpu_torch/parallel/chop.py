@@ -3,14 +3,19 @@ parity: inference_SPEINet.py:545-607).
 
 The frame is cut into 4 overlapping quadrants that run as extra batch
 entries of one forward; above `6 * min_size` pixels each quadrant recurses.
-On one card the tiles simply share the batch, so the JAX package's
-`tile_sharding` (the tiles spread over a device mesh) has no counterpart.
-H and W must be even (size_must_mode 4 guarantees it, as in the reference).
+Under a process group the 4B tiles of a forward are spread over the ranks
+when 4B divides by the group's size, as the JAX package's `tile_sharding`
+spreads them over the dp mesh (chop.py:54; the reference dispatches the
+quadrants over <= 4 GPUs, inference_SPEINet.py:569), and gathered before
+they are merged; otherwise every rank runs all of them. H and W must be
+even (size_must_mode 4 guarantees it, as in the reference).
 """
 
 from __future__ import annotations
 
 import torch
+
+from speinet_tpu_torch.parallel.mesh import batch_slice, gather_batch, world
 
 
 def chop_batch(x: torch.Tensor, shave: int = 20) -> torch.Tensor:
@@ -27,14 +32,19 @@ def chop_forward(forward_fn, x: torch.Tensor, shave: int = 20,
                  min_size: int = 160000) -> torch.Tensor:
     """x [B, T, C, H, W] -> [B, C, H, W] through forward_fn
     ([4B, T, C, hs, ws] -> [4B, C, hs, ws]): one batched forward of the four
-    tiles below 6 * min_size pixels, else each tile recursed on."""
+    tiles below 6 * min_size pixels, else each tile recursed on. The
+    forward of the four tiles is spread over the process group where one is
+    open and the tile count divides by its size."""
     h, w = x.shape[-2:]
     tiles = chop_batch(x, shave=shave)
     # leaf when small enough, or when tiles would stop shrinking (their size
     # floors near 2 * shave), which would otherwise recurse forever
     shrinking = (h // 2 + shave < h) and (w // 2 + shave < w)
     if h * w < 6 * min_size or not shrinking:
-        y = forward_fn(tiles)
+        if tiles.shape[0] % world():
+            y = forward_fn(tiles)
+        else:
+            y = gather_batch(forward_fn(tiles[batch_slice(tiles.shape[0])]))
     else:
         b = x.shape[0]
         y = torch.cat([chop_forward(forward_fn, tiles[i * b:(i + 1) * b], shave,

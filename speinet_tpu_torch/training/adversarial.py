@@ -27,6 +27,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from speinet_tpu_torch.parallel.mesh import average_gradients
+from speinet_tpu_torch.utils.device import resolve_device
+
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
 
@@ -58,11 +61,13 @@ class GanState:
     opt: torch.optim.Adam
 
 
-def init_gan_state(generator: torch.Generator, device="cpu") -> GanState:
+def init_gan_state(generator: torch.Generator, device="cuda") -> GanState:
     """A discriminator drawn from `generator` as flax's Conv init is in
     distribution (kernels a standard normal clipped at +-2 and scaled by
     1 / (0.8796 sqrt(fan_in)), its truncated LeCun normal; zero biases),
-    and a fresh Adam; the learning rate is set at each step."""
+    and a fresh Adam, on the card unless `device` is the CPU; the learning
+    rate is set at each step."""
+    device = resolve_device(device)
     dis = Discriminator()
     with torch.no_grad():
         for conv in dis.convs:
@@ -97,13 +102,15 @@ def generator_loss(gan: GanState, out: torch.Tensor,
 
 def discriminator_step(gan: GanState, out: torch.Tensor, gt: torch.Tensor,
                        lr: float, rgb_range: float = 255.0) -> torch.Tensor:
-    """One Adam update of D on (gt -> 1, out.detach() -> 0) at rate `lr`;
-    returns D's loss before the update, detached."""
+    """One Adam update of D on (gt -> 1, out.detach() -> 0) at rate `lr`,
+    its gradient averaged over the process group where one is open; returns
+    D's loss before the update, detached."""
     for group in gan.opt.param_groups:
         group["lr"] = lr
     gan.opt.zero_grad(set_to_none=True)
     loss = (bce_logits(gan.dis(prep(gt, rgb_range)), 1.0)
             + bce_logits(gan.dis(prep(out.detach(), rgb_range)), 0.0))
     loss.backward()
+    average_gradients(gan.dis.parameters())
     gan.opt.step()
     return loss.detach()

@@ -6,8 +6,9 @@ HEM's mask is the union of the residual's top half per sample (the
 threshold is the [k]-th value of the descending sort, as the reference
 indexes it) and exactly int(0.1 H W) random pixels. The random part comes
 from a uniform draw that `hem_mask` takes as an argument; `LossComputer`
-draws it from the generator it is given, on that generator's device. The
-mask carries no gradient.
+draws it from the generator it is given, on that generator's device: under
+a process group the global batch's [B_global, H W] draw, of which each rank
+keeps its rows. The mask carries no gradient.
 
 Plugins (Loss/__init__.py:31-36): a name containing 'VGG' is the perceptual
 loss (`training/perceptual.py`) at the relu layer its digits name (22 by
@@ -23,6 +24,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from speinet_tpu_torch.parallel.mesh import rank, world
 from speinet_tpu_torch.training.adversarial import generator_loss
 from speinet_tpu_torch.training.perceptual import vgg_loss
 
@@ -106,7 +108,9 @@ class LossComputer:
             elif name == "HEM":
                 b, _, h, w = out.shape
                 dev = generator.device if generator is not None else out.device
-                u = torch.rand((b, h * w), generator=generator, device=dev)
+                # the global batch's draw, this rank's rows (mesh.py)
+                u = torch.rand((world() * b, h * w), generator=generator,
+                               device=dev)[rank() * b:(rank() + 1) * b]
                 val = hem_loss(out, gt, u.to(out.device))
             elif "VGG" in name:
                 digits = "".join(ch for ch in name if ch.isdigit()) or "22"

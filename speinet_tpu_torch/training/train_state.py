@@ -14,9 +14,15 @@
   key.
 - `train_step`: forward in training form, loss, backward, Adam step; with
   a discriminator, then its own step on the same batch and the detached
-  output at the generator's learning rate.
+  output at the generator's learning rate. Under a process group each rank
+  steps on its rows of the global batch: the loss and the gates' batch
+  statistics are those of the global batch, DropPath and HEM keep their
+  rows of the global draws, and the gradients (the discriminator's too)
+  are averaged over the group before Adam, so every rank takes the
+  single-process step on the global batch (`parallel/mesh.py`).
 - `recalibrate_batch_stats`: the BatchNorm running statistics replaced by
-  the average of per-batch statistics under the current weights (:138-163).
+  the average of per-batch statistics under the current weights (:138-163);
+  under a group every rank runs its forwards in step, each on its rows.
 - `eval_step`: the inference forward.
 """
 
@@ -29,6 +35,7 @@ import torch.nn as nn
 
 from speinet_tpu_torch.config import Config
 from speinet_tpu_torch.models.blocks import BN_MOMENTUM
+from speinet_tpu_torch.parallel.mesh import average_gradients
 from speinet_tpu_torch.training.adversarial import (GanState, discriminator_step,
                                                     init_gan_state)
 from speinet_tpu_torch.training.loss import LossComputer, parse_loss_spec
@@ -50,8 +57,9 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
-def make_gan_state(cfg: Config, device="cpu") -> GanState | None:
-    """The discriminator state a GAN loss spec needs, else None."""
+def make_gan_state(cfg: Config, device="cuda") -> GanState | None:
+    """The discriminator state a GAN loss spec needs, else None; on the card
+    unless `device` is the CPU."""
     if not any("GAN" in name for _, name in parse_loss_spec(cfg.loss)):
         return None
     return init_gan_state(torch.Generator().manual_seed(cfg.seed + 7), device)
@@ -71,6 +79,7 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     out = model(inp, train=True, generator=generator)
     total, comps = loss_computer(out, gt, generator, gan)
     total.backward()
+    average_gradients(model.parameters())
     optimizer.step()
     comps = {k: v.detach() for k, v in comps.items()}
     if loss_computer.has_gan:

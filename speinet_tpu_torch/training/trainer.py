@@ -14,6 +14,16 @@ On the card the model computes in bfloat16 with float32 parameters;
 DropPath and HEM draw from one generator on the model's device. A loss
 spec with a GAN term trains a discriminator beside the model (its step
 after each of the model's, its loss logged as DIS) and checkpoints it.
+
+Under a process group (`parallel/mesh.py`) every rank trains on its rows of
+each global batch and takes the same step; the loss sums of a log line are
+averaged over the group when the line is written, and nowhere else. test()
+deals each group of consecutive windows to the ranks, one each, the last
+group padded by repeating its last window, and gathers the outputs back in
+order, so every rank scores every window as one process would (the JAX
+trainer pads its eval batches to the mesh, trainer.py:154-191). Rank 0
+alone writes the checkpoint, the images and the metric files; every rank
+restores from the same checkpoint and resumes from the same epoch.
 """
 
 from __future__ import annotations
@@ -26,12 +36,14 @@ import torch
 from speinet_tpu_torch.config import Config
 from speinet_tpu_torch.data.loader import prefetch_to_device, to_device
 from speinet_tpu_torch.ops.metrics import postprocess_uint8, psnr_shave
+from speinet_tpu_torch.parallel.mesh import (gather_batch, is_main, mean_over_group,
+                                             rank, world)
 from speinet_tpu_torch.training.loss import LossComputer
 from speinet_tpu_torch.training.train_state import (eval_step, lr_for_epoch,
                                                     make_gan_state, make_optimizer,
                                                     recalibrate_batch_stats,
                                                     set_lr, train_step)
-from speinet_tpu_torch.utils.checkpoint import CheckpointManager
+from speinet_tpu_torch.utils.checkpoint import CheckpointManager, model_state_dict
 from speinet_tpu_torch.utils.device import resolve_device
 from speinet_tpu_torch.utils.logging import Logger
 
@@ -65,9 +77,9 @@ class Trainer:
             self.step = restored
             self.ckp.write_log(f"Restored checkpoint at step {self.step}")
         elif cfg.pre_train != "." and os.path.exists(cfg.pre_train):
-            # a port state_dict (.pt), as infer.py's --model_path takes
-            self.model.load_state_dict(torch.load(cfg.pre_train, map_location="cpu",
-                                                  weights_only=True), strict=True)
+            # a port state_dict (.pt) or trainer checkpoint, as infer.py's
+            # --model_path takes
+            self.model.load_state_dict(model_state_dict(cfg.pre_train), strict=True)
             self.ckp.write_log(f"Loaded pre-trained weights from {cfg.pre_train}")
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         # epoch counter resumes from the restored metric log (trainer.py:19-22)
@@ -94,11 +106,18 @@ class Trainer:
         last_comps = None
 
         def flush():
-            nonlocal run_total, run_comps
+            """Log the loss sums since the last line and the last step's
+            components, each averaged over the group."""
+            nonlocal run_total, run_comps, last_comps
             if run_total is None:
                 return
-            self.ckp.report_log(float(run_total),
-                                components={k: float(v) for k, v in run_comps.items()})
+            keys = list(run_comps)
+            vals = mean_over_group(torch.stack(
+                [run_total] + [run_comps[k] for k in keys]
+                + [last_comps[k] for k in keys])).tolist()
+            n = len(keys)
+            self.ckp.report_log(vals[0], components=dict(zip(keys, vals[1:n + 1])))
+            last_comps = dict(zip(keys, vals[n + 1:]))
             run_total = run_comps = None
 
         loader = self.data.loader_train
@@ -139,25 +158,42 @@ class Trainer:
         self.ckp.start_log(train=False)
         n = 0
         mid = cfg.n_sequence // 2
+        group = []     # (input, centre gt, names) of up to world() windows
+
+        def flush():
+            """Each rank restores its window of the group (the padding
+            repeats the last one); every rank scores the gathered outputs."""
+            nonlocal n
+            if not group:
+                return
+            inputs, gts, names = group[min(rank(), len(group) - 1)]
+            out = gather_batch(eval_step(self.model, to_device(inputs, self.device)))
+            for k, (inputs, gts, names) in enumerate(group):
+                gt = to_device(gts[:, mid], self.device)
+                self.ckp.report_log(
+                    float(psnr_shave(gt[0], out[k], rgb_range=cfg.rgb_range)),
+                    train=False)
+                n += 1
+                if cfg.save_images and is_main():
+                    imgs = [postprocess_uint8(t, cfg.rgb_range) for t in
+                            (gt[0], to_device(inputs[0, mid], self.device), out[k])]
+                    self.ckp.save_images(names[0][mid], imgs, self.epoch)
+            group.clear()
+
         for sample in self.data.loader_test:
-            inputs, gts, names = sample[0], sample[1], sample[3]
-            inp = to_device(inputs, self.device)
-            gt = to_device(gts[:, mid], self.device)
-            out = eval_step(self.model, inp)
-            self.ckp.report_log(float(psnr_shave(gt[0], out[0], rgb_range=cfg.rgb_range)),
-                                train=False)
-            n += 1
-            if cfg.save_images:
-                imgs = [postprocess_uint8(t, cfg.rgb_range)
-                        for t in (gt[0], inp[0, mid], out[0])]
-                self.ckp.save_images(names[0][mid], imgs, self.epoch)
+            if group and group[0][0].shape != sample[0].shape:
+                flush()    # the frame size changed (another video's size)
+            group.append((sample[0], sample[1], sample[3]))
+            if len(group) == world():
+                flush()
+        flush()
         self.ckp.end_log(max(n, 1), train=False)
         psnr_log = self.ckp.psnr_log
         best_idx = max(range(len(psnr_log)), key=psnr_log.__getitem__)
         self.ckp.write_log(
             f"[{cfg.data_test}]\taverage PSNR: {psnr_log[-1]:.3f} "
             f"(Best: {psnr_log[best_idx]:.3f} @epoch {best_idx + 1})")
-        if not cfg.test_only:
+        if not cfg.test_only and is_main():
             self.ckpt.save(self.model, self.optimizer, self.step, self.epoch,
                            is_best=(best_idx + 1 == self.epoch), gan=self.gan)
             self.ckp.save_metrics()

@@ -8,7 +8,9 @@ optimizer: state_dict, step, epoch}, so a resume restores the optimizer
 exactly, and with a GAN loss {gan: {dis, opt}}, the discriminator and its
 Adam state (the reference keeps them in loss.pt, Loss/__init__.py:126-128).
 A checkpoint without them restores the rest and keeps a fresh
-discriminator. A port inference `--model_path` takes the `model` entry.
+discriminator. A port inference `--model_path` takes the `model` entry
+(`model_state_dict`). Under a process group rank 0 alone writes; every rank
+reads.
 """
 
 from __future__ import annotations
@@ -17,18 +19,23 @@ import os
 
 import torch
 
+from speinet_tpu_torch.parallel.mesh import is_main
+
 
 class CheckpointManager:
     def __init__(self, model_dir: str, save_middle: bool = False):
         self.model_dir = os.path.abspath(model_dir)
         self.save_middle = save_middle
-        os.makedirs(self.model_dir, exist_ok=True)
+        if is_main():
+            os.makedirs(self.model_dir, exist_ok=True)
 
     def _path(self, name: str) -> str:
         return os.path.join(self.model_dir, name)
 
     def save(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
              step: int, epoch: int, is_best: bool = False, gan=None) -> None:
+        if not is_main():
+            return
         tree = {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
                 "step": int(step), "epoch": int(epoch)}
         if gan is not None:
@@ -58,3 +65,10 @@ class CheckpointManager:
             gan.dis.load_state_dict(tree["gan"]["dis"], strict=True)
             gan.opt.load_state_dict(tree["gan"]["opt"])
         return tree["step"]
+
+
+def model_state_dict(path: str) -> dict:
+    """The model weights in `path`: a trainer checkpoint's `model` entry, or
+    the whole file where it is a bare state_dict."""
+    tree = torch.load(path, map_location="cpu", weights_only=True)
+    return tree["model"] if isinstance(tree.get("model"), dict) else tree

@@ -14,18 +14,24 @@ Directory layout matches the reference:
                               parity: Loss/__init__.py:105-118)
 Resume (`--load`) restores the metric logs so the epoch counter and the
 LR fast-forward match the reference semantics (log/log.py:25-31).
-imageio (image dumps) and matplotlib (plots) are imported where used.
+Under a process group rank 0 alone prints and writes; every rank keeps the
+accumulators and reads a resumed run's metric logs (`parallel/mesh.py`).
+Pillow writes the image dumps (`utils/image_io.py`); matplotlib, imported
+where used, draws the plots, which are left out where it is not installed.
 """
 
 from __future__ import annotations
 
 import datetime
+import importlib.util
 import os
 from typing import Dict, List
 
 import numpy as np
 
 from speinet_tpu_torch.config import Config
+from speinet_tpu_torch.parallel.mesh import is_main
+from speinet_tpu_torch.utils.image_io import imwrite
 
 
 class Logger:
@@ -56,18 +62,23 @@ class Logger:
                     self.comp_log = [row for row in mat]
                 print(f"Continue from epoch {len(self.psnr_log)}...")
 
-        os.makedirs(os.path.join(self.dir, "model"), exist_ok=True)
-        os.makedirs(os.path.join(self.dir, "result", cfg.data_test), exist_ok=True)
-        open_type = "a" if os.path.exists(os.path.join(self.dir, "log.txt")) else "w"
-        self.log_file = open(os.path.join(self.dir, "log.txt"), open_type)
-        with open(os.path.join(self.dir, "config.txt"), open_type) as f:
-            f.write(f"From epoch {len(self.psnr_log)}...\n\n")
-            f.write(cfg.to_json() + "\n\n")
+        self.writes = is_main()
+        self.log_file = None
+        if self.writes:
+            os.makedirs(os.path.join(self.dir, "model"), exist_ok=True)
+            os.makedirs(os.path.join(self.dir, "result", cfg.data_test), exist_ok=True)
+            open_type = "a" if os.path.exists(os.path.join(self.dir, "log.txt")) else "w"
+            self.log_file = open(os.path.join(self.dir, "log.txt"), open_type)
+            with open(os.path.join(self.dir, "config.txt"), open_type) as f:
+                f.write(f"From epoch {len(self.psnr_log)}...\n\n")
+                f.write(cfg.to_json() + "\n\n")
 
         self._cur_loss = 0.0
         self._cur_psnr = 0.0
 
     def write_log(self, log: str):
+        if not self.writes:
+            return
         print(log, flush=True)
         self.log_file.write(log + "\n")
         self.log_file.flush()
@@ -104,6 +115,8 @@ class Logger:
             self.psnr_log[-1] /= n_div
 
     def save_metrics(self):
+        if not self.writes:
+            return
         np.save(os.path.join(self.dir, "psnr.npy"), np.asarray(self.psnr_log))
         np.save(os.path.join(self.dir, "loss.npy"), np.asarray(self.loss_log))
         self.plot(self.psnr_log, "PSNR", "psnr.pdf")
@@ -121,7 +134,7 @@ class Logger:
                           f"loss_loss_{name}.pdf")
 
     def plot(self, values, label: str, filename: str):
-        if not values:
+        if not values or importlib.util.find_spec("matplotlib") is None:
             return
         import matplotlib
         matplotlib.use("Agg")
@@ -140,15 +153,15 @@ class Logger:
     def save_images(self, filename: str, images, epoch: int):
         """filename 'video.frame'; images: list of HWC uint8 arrays in
         (gt, blur, deblur) order (parity: log/log.py:63-81)."""
-        import imageio.v2 as imageio
-
+        if not self.writes:
+            return
         f = filename.split(".")
         dirname = os.path.join(self.dir, "result", self.cfg.data_test, f[0])
         os.makedirs(dirname, exist_ok=True)
         postfix = ["gt", "blur", "deblur_iter1", "deblur_iter2"]
         for img, post in zip(images, postfix):
-            imageio.imwrite(os.path.join(dirname, f"{f[1]}_{post}.png"),
-                            np.asarray(img))
+            imwrite(os.path.join(dirname, f"{f[1]}_{post}.png"), np.asarray(img))
 
     def done(self):
-        self.log_file.close()
+        if self.log_file is not None:
+            self.log_file.close()

@@ -603,3 +603,45 @@ def test_banded_corr_backward_kernel(gen, routing):
     for a, c in pairs:
         tol = 2.0 ** -8 * c.grad.float().abs().max().item()
         assert (a.grad.cpu().float() - c.grad.float()).abs().max().item() <= tol
+
+
+def test_world1_nccl_group_matches_no_group(gen, tmp_path):
+    """A TripletAttention's training forward and backward, its gradients
+    averaged over the group, in a world-size-1 nccl group against the same
+    without a group: the gate statistics' all-reduce (and its backward) and
+    the gradient all-reduce run, and change nothing: each is the identity
+    with one rank, and the statistics are sum / count with or without a
+    group (atomic adds in cuDNN's backwards may still reorder sums)."""
+    import torch.distributed as dist
+    from speinet_tpu_torch.models.blocks import TripletAttention
+    from speinet_tpu_torch.parallel.mesh import (average_gradients,
+                                                 maybe_init_distributed, world)
+
+    x = _bf16((4, 20, 24, 32), gen)
+
+    def run():
+        torch.manual_seed(0)
+        te = TripletAttention().cuda()
+        xx = x.clone().requires_grad_(True)
+        y = te(xx, train=True)
+        y.float().square().mean().backward()
+        average_gradients(te.parameters())
+        return dict(y=y.float(), x_grad=xx.grad.float(),
+                    **{f"grad {n}": p.grad for n, p in te.named_parameters()},
+                    **{k: v.float() for k, v in te.state_dict().items()})
+
+    want = run()
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdzv", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        assert maybe_init_distributed("cuda") == torch.device("cuda", 0)
+        assert world() == 1
+        got = run()
+    finally:
+        dist.destroy_process_group()
+    assert set(got) == set(want)
+    for k, w in want.items():
+        # bf16 outputs: one bf16 step; f32 statistics and gradients: 1e-4
+        tol = (2.0 ** -7 if k in ("y", "x_grad") else 1e-4) * max(
+            w.abs().max().item(), 1e-6)
+        assert (got[k] - w).abs().max().item() <= tol, k

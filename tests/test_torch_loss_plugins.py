@@ -109,7 +109,7 @@ def test_vgg_npz_of_wrong_shape_is_refused(tmp_path, vgg_env):
 def _gan_pair(seed=1, h=32, w=32):
     """(the JAX gan state, the port's GanState) holding the same weights."""
     j_gan = jadv.init_gan_state(jax.random.PRNGKey(seed), (2, 3, h, w))
-    gan = adversarial.init_gan_state(torch.Generator().manual_seed(0))
+    gan = adversarial.init_gan_state(torch.Generator().manual_seed(0), device="cpu")
     gan.dis.load_state_dict(discriminator_from_flax(jax.device_get(j_gan["params"])),
                             strict=True)
     return j_gan, gan
@@ -174,7 +174,7 @@ def test_loss_spec_dispatch():
 
 
 def _trained_gan():
-    gan = make_gan_state(Config(loss="1*L1+0.01*GAN"))
+    gan = make_gan_state(Config(loss="1*L1+0.01*GAN"), device="cpu")
     adversarial.discriminator_step(gan, torch.from_numpy(_images(4)),
                                    torch.from_numpy(_images(5)), lr=1e-3)
     return gan
@@ -186,7 +186,7 @@ def test_checkpoint_round_trip_with_discriminator(tmp_path):
     gan = _trained_gan()
     ckpt = CheckpointManager(str(tmp_path / "model"))
     ckpt.save(model, opt, step=7, epoch=1, gan=gan)
-    fresh = adversarial.init_gan_state(torch.Generator().manual_seed(9))
+    fresh = adversarial.init_gan_state(torch.Generator().manual_seed(9), device="cpu")
     assert ckpt.restore(torch.nn.Linear(3, 2), torch.optim.Adam(model.parameters()),
                         gan=fresh) == 7
     for name, p in gan.dis.state_dict().items():
@@ -202,7 +202,7 @@ def test_checkpoint_without_discriminator_keeps_a_fresh_one(tmp_path):
     model = torch.nn.Linear(3, 2)
     ckpt = CheckpointManager(str(tmp_path / "model"))
     ckpt.save(model, torch.optim.Adam(model.parameters()), step=3, epoch=1)
-    fresh = adversarial.init_gan_state(torch.Generator().manual_seed(9))
+    fresh = adversarial.init_gan_state(torch.Generator().manual_seed(9), device="cpu")
     before = {k: v.clone() for k, v in fresh.dis.state_dict().items()}
     restored = torch.nn.Linear(3, 2)
     assert ckpt.restore(restored, torch.optim.Adam(restored.parameters()),

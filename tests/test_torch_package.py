@@ -27,7 +27,8 @@ def test_fresh_import_leaves_jax_out():
             "speinet_tpu_torch.ops.metrics, speinet_tpu_torch.main_train, "
             "speinet_tpu_torch.main_swint, speinet_tpu_torch.models.swint, "
             "speinet_tpu_torch.detector.train, speinet_tpu_torch.ops.smoothing, "
-            "speinet_tpu_torch.utils.image_utils\n"
+            "speinet_tpu_torch.utils.image_utils, speinet_tpu_torch.pipeline, "
+            "speinet_tpu_torch.parallel.mesh, speinet_tpu_torch.parallel.halo\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'speinet_tpu' or m.startswith('speinet_tpu.'))\n"
             "assert not bad, bad\n")

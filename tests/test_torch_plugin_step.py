@@ -59,7 +59,7 @@ def test_gan_vgg_train_step_matches_jax(shared):  # noqa: F811
 
     cfg = set_template(Config(template="SPEINet")).replace(loss=spec, lr=1e-4)
     model = _port_copy(port, drop_path_rate=0.0)
-    gan = make_gan_state(cfg)
+    gan = make_gan_state(cfg, device="cpu")
     gan.dis.load_state_dict(d_before, strict=True)
     total, comps = train_step(model, make_optimizer(cfg, model),
                               LossComputer(cfg.loss, rgb_range=cfg.rgb_range),

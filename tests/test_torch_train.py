@@ -38,6 +38,8 @@ from speinet_tpu_torch.training.train_state import (make_optimizer,
                                                     train_step)
 from speinet_tpu_torch.utils.convert import from_flax_params
 from test_end_to_end import TINY_ARGS, make_tree
+from test_torch_dist import group2  # noqa: F401
+from test_torch_dist import min_pool_gap as _min_pool_gap
 from test_torch_kernels import interpret  # noqa: F401
 from test_torch_models import TINY, _frames, shared  # noqa: F401
 
@@ -102,34 +104,9 @@ def _assert_tensors_close(got: dict, want: dict, what: str):
 # rounding: on the batch of seed 40 (smallest top-2 gap 2.8e-7 of the map's
 # scale) the JAX package's own two compilations of this gradient disagree
 # that way. The step test takes a batch whose smallest gap is above
-# POOL_MARGIN and asserts it.
+# POOL_MARGIN and asserts it (`_min_pool_gap`, test_torch_dist.py).
 STEP_SEED = 30
 POOL_MARGIN = 1e-6
-
-
-def _min_pool_gap(model, run) -> float:
-    """Smallest top-2 gap, over every line that a TripletAttention gate
-    max-pools while `run()` runs, relative to that map's max |value|."""
-    from speinet_tpu_torch.models.blocks import TripletAttention
-
-    gaps = []
-
-    def hook(_, args):
-        x = args[0].detach().float()
-        for dim in (1, 2):                       # over H, over W (NHWC)
-            top = x.topk(2, dim=dim).values
-            gap = top.select(dim, 0) - top.select(dim, 1)
-            gaps.append((gap.min() / x.abs().max()).item())
-
-    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
-               if isinstance(m, TripletAttention)]
-    try:
-        run()
-    finally:
-        for h in handles:
-            h.remove()
-    assert gaps
-    return min(gaps)
 
 
 def _assert_adam_close(got: dict, want: dict, before: dict, grads: dict,
@@ -158,13 +135,18 @@ def _jax_cfg(**kw):
         drop_path_rate=0.0, **kw)
 
 
-def test_train_step_matches_jax(shared, fused):  # noqa: F811
-    """One step, loss 1*L1, drop_path_rate 0: the loss, every parameter's
-    gradient, the parameters after Adam and the BatchNorm running statistics
-    against `make_train_step`. The batch keeps every max-pool's top two at
-    least POOL_MARGIN apart, and the JAX package's own gradient, compiled
-    apart from the step, must agree with the step's at the same limit."""
-    variables, port = shared
+@pytest.fixture(scope="module")
+def jax_step(shared):  # noqa: F811
+    """The JAX package's train step on `_batch(STEP_SEED)`, loss 1*L1,
+    drop_path_rate 0, compiled once for the tests that read it, with Pallas
+    in interpret mode and `_fused_enabled` patched to True (as `fused`):
+    (the step's gradient, read from Adam's first moment, the gradient of
+    the step's loss_fn compiled apart, the state after the step, the loss).
+    """
+    from jax.experimental import pallas as pl
+    import speinet_tpu.models.swinir as swinir_mod
+
+    variables, _ = shared
     x, gt = _batch(seed=STEP_SEED)
     jcfg = _jax_cfg(loss="1*L1", lr=1e-4)
     jm = JSPEINet.from_config(jcfg)
@@ -182,13 +164,60 @@ def test_train_step_matches_jax(shared, fused):  # noqa: F811
                           rngs={"droppath": jax.random.PRNGKey(0)})
         return jnp.mean(jnp.abs(out - jnp.asarray(gt)))
 
-    j_grads_apart = jax.jit(jax.grad(loss_fn))(params)
-    new_state, j_total, _ = j_make_train_step(jcfg, jm, tx)(
-        state, jnp.asarray(x), jnp.asarray(gt), jax.random.PRNGKey(0))
+    orig = pl.pallas_call
+
+    def interp(*a, **k):
+        k["interpret"] = True
+        k.pop("compiler_params", None)
+        return orig(*a, **k)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pl, "pallas_call", interp)
+        mp.setattr(swinir_mod, "_fused_enabled", lambda: True)
+        j_grads_apart = jax.jit(jax.grad(loss_fn))(params)
+        new_state, j_total, _ = j_make_train_step(jcfg, jm, tx)(
+            state, jnp.asarray(x), jnp.asarray(gt), jax.random.PRNGKey(0))
     # the gradient this step took, from Adam's first moment: mu = (1 - b1) g
     adam = next(s for s in new_state.opt_state if hasattr(s, "mu"))
     j_grads = jax.tree_util.tree_map(lambda m: m / (1.0 - jcfg.beta1), adam.mu)
+    return j_grads, j_grads_apart, new_state, float(j_total)
 
+
+def _jax_wants(variables, port, j_grads):
+    """The JAX step's gradients as port tensors, for the parameters that
+    take one."""
+    want = _as_port(j_grads, variables["batch_stats"])
+    params = dict(port.named_parameters())
+    return {n: t for n, t in want.items() if n in params
+            and not n.startswith("search23.")}
+
+
+def _assert_step_matches_jax(variables, port, jax_step, total, grads, got, cfg):
+    """A port step's loss, gradients and weights after Adam against the JAX
+    step's, and every running statistic moved."""
+    j_grads, _, new_state, j_total = jax_step
+    want = _jax_wants(variables, port, j_grads)
+    assert set(grads) == set(want)
+    np.testing.assert_allclose(total, j_total, rtol=1e-5)
+    _assert_tensors_close(grads, want, "gradient")
+    after = _as_port(new_state.params, new_state.batch_stats)
+    before = port.state_dict()
+    _assert_adam_close(got, {
+        n: t for n, t in after.items() if not n.endswith("num_batches_tracked")},
+        before, want, cfg.lr)
+    # every running statistic moved (new = 0.99 old + 0.01 batch)
+    stats = [n for n in got if n.endswith(("running_mean", "running_var"))]
+    assert stats and not any(torch.equal(got[n], before[n]) for n in stats)
+
+
+def test_train_step_matches_jax(shared, jax_step):  # noqa: F811
+    """One step, loss 1*L1, drop_path_rate 0: the loss, every parameter's
+    gradient, the parameters after Adam and the BatchNorm running statistics
+    against `make_train_step`. The batch keeps every max-pool's top two at
+    least POOL_MARGIN apart, and the JAX package's own gradient, compiled
+    apart from the step, must agree with the step's at the same limit."""
+    variables, port = shared
+    x, gt = _batch(seed=STEP_SEED)
     cfg = set_template(Config(template="SPEINet")).replace(loss="1*L1", lr=1e-4)
     model = _port_copy(port, drop_path_rate=0.0)
     out = {}
@@ -201,28 +230,44 @@ def test_train_step_matches_jax(shared, fused):  # noqa: F811
 
     gap = _min_pool_gap(model, step)
     grads = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
-    want = _as_port(j_grads, variables["batch_stats"])
-    want = {n: t for n, t in want.items() if n in dict(model.named_parameters())
-            and not n.startswith("search23.")}
-    assert set(grads) == set(want)
-    apart = _as_port(j_grads_apart, variables["batch_stats"])
+    want = _jax_wants(variables, port, jax_step[0])
+    apart = _as_port(jax_step[1], variables["batch_stats"])
     rel = lambda a: max((a[n] - w).abs().max().item() / w.abs().max().item()
                         for n, w in want.items() if w.abs().max() > 0)
     print(f"smallest top-2 gap {gap:.3e}; largest per-tensor |g - g_jax| / "
           f"max|g_jax|: port {rel(grads):.3e}, JAX apart {rel(apart):.3e}")
     assert gap >= POOL_MARGIN, gap
     assert set(out["comps"]) == {"L1"}
-    np.testing.assert_allclose(out["total"].item(), float(j_total), rtol=1e-5)
     _assert_tensors_close(apart, want, "the reference's gradient compiled apart")
-    _assert_tensors_close(grads, want, "gradient")
-    after = _as_port(new_state.params, new_state.batch_stats)
-    before, got = port.state_dict(), model.state_dict()
-    _assert_adam_close(got, {
-        n: t for n, t in after.items() if not n.endswith("num_batches_tracked")},
-        before, want, cfg.lr)
-    # every running statistic moved (new = 0.99 old + 0.01 batch)
-    stats = [n for n in got if n.endswith(("running_mean", "running_var"))]
-    assert stats and not any(torch.equal(got[n], before[n]) for n in stats)
+    _assert_step_matches_jax(variables, port, jax_step, out["total"].item(), grads,
+                             model.state_dict(), cfg)
+
+
+def test_dp_train_step_matches_jax(shared, jax_step, group2):  # noqa: F811
+    """The same step on two ranks of a gloo group, one sample each: rank 0
+    holds sample 0 (routed to the sharp search), rank 1 sample 1 (routed to
+    the self reference). The gates' statistics and the gradient are
+    all-reduced, so every rank's loss mean, gradients, Adam update and
+    running statistics are the JAX step's on the whole batch, at
+    `test_train_step_matches_jax`'s limits and with its pool-gap guard."""
+    from test_torch_dist import step_on_rows
+
+    variables, port = shared
+    x, gt = _batch(seed=STEP_SEED)
+    assert x[0, 3].any() and not x[1, 3].any()
+    cfg = set_template(Config(template="SPEINet")).replace(loss="1*L1", lr=1e-4)
+    state = {k: v.numpy() for k, v in port.state_dict().items()}
+    ranks = group2.run(step_on_rows, dict(TINY, drop_path_rate=0.0), state, x, gt,
+                       cfg.loss, cfg.lr, 0)
+    gap = min(r["gap"] for r in ranks)
+    print(f"smallest top-2 gap over the ranks {gap:.3e}")
+    assert gap >= POOL_MARGIN, gap
+    total = np.mean([r["total"] for r in ranks])
+    for r in ranks:
+        _assert_step_matches_jax(
+            variables, port, jax_step, total,
+            {n: torch.from_numpy(g) for n, g in r["grads"].items()},
+            {n: torch.from_numpy(v) for n, v in r["state"].items()}, cfg)
 
 
 def test_recalibrate_batch_stats_matches_jax(shared, fused):  # noqa: F811
@@ -292,6 +337,44 @@ def test_loader_matches_jax(tmp_path, split):
         assert w[3] == g[3]
     zeroed = [not b[0][i, 3].any() for b in got for i in range(len(b[0]))]
     assert any(zeroed) and not all(zeroed)
+
+
+@pytest.mark.parametrize("process_index", [0, 1, 2])
+def test_loader_process_stride_matches_jax(tmp_path, process_index):
+    """One process's share of each global batch (batch 6 over 3 processes),
+    as JAX's BatchIterator(process_index=r, process_count=3) loads it: the
+    same samples, crops and names, batch for batch; the shares of the three
+    processes are the global batch. Both refuse a batch that does not divide
+    over the processes, and a loader that keeps a short last batch."""
+    from speinet_tpu.config import Config as JConfig
+    from speinet_tpu.data.loader import BatchIterator as JBatchIterator
+    from speinet_tpu.data.loader import make_dataset as j_make_dataset
+    from speinet_tpu_torch.data.loader import BatchIterator, make_dataset
+
+    root = str(_video_tree(tmp_path / "ds"))
+    kw = dict(dir_data=root, dir_data_test=root, patch_size=16, batch_size=6,
+              n_frames_per_video=20, n_threads=2, seed=11)
+    jds = j_make_dataset(j_set_template(JConfig(template="SPEINet")).replace(**kw),
+                         "DVD_NFS", True)
+    ds = make_dataset(set_template(Config(template="SPEINet")).replace(**kw),
+                      "DVD_NFS", True)
+    it = dict(batch_size=6, shuffle=True, seed=11, n_threads=2, drop_last=True)
+    want = list(JBatchIterator(jds, process_index=process_index, process_count=3,
+                               **it))
+    got = list(BatchIterator(ds, process_index=process_index, process_count=3, **it))
+    whole = list(BatchIterator(ds, **it))
+    assert len(got) == len(want) == len(whole) == len(ds) // 6 > 1
+    for w, g, a in zip(want, got, whole):
+        assert g[0].shape[0] == 2
+        for u, v in zip(w[:3], g[:3]):
+            np.testing.assert_array_equal(u, v)
+        assert w[3] == g[3] == a[3][process_index::3]
+        np.testing.assert_array_equal(g[0], a[0][process_index::3])
+    for cls, d in ((JBatchIterator, jds), (BatchIterator, ds)):
+        with pytest.raises(ValueError, match="divide evenly"):
+            cls(d, 4, True, 11, process_index=0, process_count=3, drop_last=True)
+        with pytest.raises(ValueError, match="drop_last"):
+            cls(d, 6, True, 11, process_index=0, process_count=3)
 
 
 def test_main_train_one_epoch_and_resume(tmp_path):
