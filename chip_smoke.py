@@ -91,7 +91,23 @@ toolkit. In order it:
    patch 200, training under `torch.distributed.run --nproc_per_node 1`):
    every stage exits 0 (its seconds printed), and the inference stage's
    frames are those of the trained model_best, not of a random init;
-10. prints the `kernels` JSON line, the card's name and power limit, and as
+10. `evidence`: the evidence modules of `speinet_tpu_torch/evidence/` (each
+   training run in a process of its own, its launches counted there from
+   0): (a) the head-to-head tree and plan, then 600 steps of the port for
+   seeds 11 and 12 at the shrunk config the JAX package's committed curves
+   used (n_feat 16, embed 64, depths 2x2, 4 heads, patch 80, batch 4):
+   losses finite, K3 forward and backward, K5 and K10 in the steps, K1-K3,
+   K5 and K10 in the evals, each seed's step-600 PSNR >= 14.3 dB and above
+   its step-100 one; (b) the quality run, 2 epochs (`--steps 156`: 39
+   steps each) at the template's width: its summary finite, the trainer's
+   epoch-2 eval PSNR >= 11.2 dB; (c) the detector grid's cell ratio 0.5,
+   k 11 within 0.01 of the JAX package's accuracies on the same tree; (d)
+   the default detector's fit against the shipped npz; before them every
+   kernel of those paths at the head-to-head model's shapes against its
+   plain version (K1; K2 with 16-feature heads, widened to the kernel's 32;
+   K3; K5 at D 576; K10 on rows 448 wide), the runs started as the
+   modules' own CLIs;
+11. prints the `kernels` JSON line, the card's name and power limit, and as
    the last line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero; without CUDA, or outside a checkout,
@@ -139,13 +155,14 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def check_conv(rng_seed: int):
-    """K1 at every main-path shape: (x shape, k, Cout, stride)."""
+def check_conv(rng_seed: int, cases=None):
+    """K1 at every main-path shape: (label, x shape, k, Cout, stride), the
+    720p template's unless `cases` are given."""
     import torch
     import torch.nn.functional as F
     from speinet_tpu_torch.kernels import conv2d, conv2d_plain
 
-    cases = [
+    cases = cases or [
         ("in_conv 5x5 3->32 720x1280", (1, 720, 1280, 3), 5, 32, 1),
         ("lv1 res 5x5 32->32 720x1280", (1, 720, 1280, 32), 5, 32, 1),
         ("enc1 5x5/2 32->64 720x1280", (1, 720, 1280, 32), 5, 64, 2),
@@ -215,17 +232,18 @@ def swin_weights(g, c: int, hidden: int, heads: int):
         mat(c, hidden), vec(c, -0.1, 0.1))
 
 
-def check_swin(rng_seed: int):
-    """K2 on one 720p lv3 stream pair [2, 180, 320, 256], shift 0 and 2. The
-    check must also reject the kernel run with two planted faults: the
-    relative-position bias dropped, and (shift 2) the shift mask dropped."""
+def check_swin(rng_seed: int, b: int = 2, h: int = 180, w: int = 320, c: int = 256,
+               heads: int = 8):
+    """K2 on one stream pair [b, h, w, c] (the 720p lv3 pair of the template
+    by default), shift 0 and 2, hidden 2c. The check must also reject the
+    kernel run with two planted faults: the relative-position bias dropped,
+    and (shift 2) the shift mask dropped."""
     import torch
     from speinet_tpu_torch.kernels import (block_errors, block_errors_pass,
                                           swin_block, swin_block_plain)
 
     g = torch.Generator(device="cuda").manual_seed(rng_seed)
-    c, hidden, heads, ws = 256, 512, 8, 5
-    b, h, w = 2, 180, 320
+    hidden, ws = 2 * c, 5
     wts = swin_weights(g, c, hidden, heads)
     no_bias = wts._replace(relbias=torch.zeros_like(wts.relbias))
     rows = []
@@ -252,7 +270,7 @@ def check_swin(rng_seed: int):
         flops = 2.0 * tokens * (4 * c * c + 2 * c * hidden) + 4.0 * tokens * n * c
         wbytes = nbytes(*wts)
         bms, by = bound(flops, nbytes(x, y, out) + wbytes)
-        rows.append(dict(shape=f"[2,180,320,256] shift {shift}", **e,
+        rows.append(dict(shape=f"[{b},{h},{w},{c}] {heads} heads shift {shift}", **e,
                          planted_faults_rejected=planted, ms=ms,
                          plain_ms=plain_ms, library_ms=None, bound_ms=bms,
                          bound_by=by, flops=flops))
@@ -332,56 +350,65 @@ def check_corr(rng_seed: int):
     return rows
 
 
-def check_corr_unfold(rng_seed: int):
-    """K5 on mixed batches (sample 0 searches a sharp map's unfold, sample 1
-    the permuted self reference) at 720p lv3 and at a chop tile's lv3."""
+def corr_unfold_row(g, routes, h: int, w: int, c: int, backward: bool = False):
+    """K5 on one batch of lv3 maps [B, h, w, c] (sample i searches a sharp
+    map's unfold where routes[i], else the permuted self reference) against
+    its plain version under `_corr_rule` (the same bf16 operands, the scale
+    rounded alike, f32 sums of D = 9c products in another order); with
+    `backward`, also the time of its plain PyTorch backward."""
     import torch
     from speinet_tpu_torch.kernels import (correlation_argmax_lds,
                                           correlation_argmax_lds_plain)
-    from speinet_tpu_torch.kernels.corr import scaled_reference
-    from speinet_tpu_torch.models.search_transfer import (unfold_reference,
-                                                          patch_inv_norms)
+    from speinet_tpu_torch.kernels.corr import CorrLds, scaled_reference
+    from speinet_tpu_torch.models.search_transfer import (patch_inv_norms,
+                                                          unfold_reference)
+
+    b = len(routes)
+    f = torch.rand((b, h, w, c), generator=g, device="cuda").to(torch.bfloat16)
+    sharp = torch.rand((b, h, w, c), generator=g, device="cuda").to(torch.bfloat16)
+    hs = torch.tensor(routes, device="cuda")
+    lr, ref, inv = (t.contiguous() for t in unfold_reference(f, sharp, "mixed", hs,
+                                                             patch_inv_norms(f)))
+    s, idx = correlation_argmax_lds(lr, ref, inv)
+    s_p, idx_p = correlation_argmax_lds_plain(lr, ref, inv)
+    sc = scaled_reference(ref, inv)
+    label = f"corr_unfold {b}x{h}x{w}x{c}"
+    err, tol, nd = _corr_rule(label, s, idx, s_p, idx_p,
+                              lambda bi, p, k: (lr[bi, :, p].float()
+                                                * sc[bi, :, k].float()).sum(1))
+    ms = time_ms(lambda: correlation_argmax_lds(lr, ref, inv), iters=3, warmup=1)
+    _, d, l = lr.shape
+    flops = 2.0 * b * l * ref.shape[2] * d
+    bms, by = bound(flops, nbytes(lr, ref, inv, s, idx))
+    kind = ("sharp" if all(routes) else "self" if not any(routes) else "mixed")
+    row = dict(shape=f"{kind} B={b} D={d} L={l} Lr={ref.shape[2]} ({h}x{w}x{c})",
+               max_abs_err=err, tol=tol, idx_differs=nd, ms=ms,
+               plain_ms=time_ms(lambda: correlation_argmax_lds_plain(lr, ref, inv),
+                                iters=1, warmup=1),
+               library_ms=None, bound_ms=bms, bound_by=by, flops=flops,
+               tflops=flops / ms / 1e9)
+    if backward:
+        leaves = [t.detach().clone().requires_grad_(True) for t in (lr, ref, inv)]
+        gs = torch.randn_like(s)
+
+        def fwd_bwd():
+            out, _ = CorrLds.apply(*leaves)
+            out.backward(gs)
+
+        row["backward_ms"] = time_ms(fwd_bwd, iters=3, warmup=1) - ms
+    return row
+
+
+def check_corr_unfold(rng_seed: int, cases=None):
+    """K5 at every main-path shape: (routes, h, w, c), each by
+    `corr_unfold_row`; unless `cases` are given, a mixed batch (sample 0
+    searches a sharp map's unfold, sample 1 the permuted self reference) at
+    720p lv3 and at a chop tile's lv3."""
+    import torch
 
     g = torch.Generator(device="cuda").manual_seed(rng_seed)
-    has_sharp = torch.tensor([True, False], device="cuda")
-    rows = []
-    for h, w in ((180, 320), (95, 165)):
-        f = torch.rand((2, h, w, 128), generator=g, device="cuda").to(torch.bfloat16)
-        sharp = torch.rand((2, h, w, 128), generator=g, device="cuda").to(torch.bfloat16)
-        lr, ref, inv = unfold_reference(f, sharp, "mixed", has_sharp,
-                                        patch_inv_norms(f))
-        lr, ref, inv = lr.contiguous(), ref.contiguous(), inv.contiguous()
-        s, idx = correlation_argmax_lds(lr, ref, inv)
-        s_p, idx_p = correlation_argmax_lds_plain(lr, ref, inv)
-        torch.cuda.synchronize()
-        err = (s - s_p).abs().max().item()
-        # the same bf16 operands (the scale rounded alike), f32 sums of
-        # D = 1152 products in another order
-        tol = 1e-5 * max(s_p.abs().max().item(), 1.0)
-        if not err <= tol:
-            raise AssertionError(f"corr_unfold {h}x{w}: max |S err| {err} > {tol}")
-        # an index may differ only where it attains the max within tol
-        diff = (idx != idx_p).nonzero()
-        if diff.numel():
-            bi, p = diff[:, 0], diff[:, 1]
-            q = idx[bi, p].long()
-            sc = scaled_reference(ref, inv)
-            at_k = (lr[bi, :, p].float() * sc[bi, :, q].float()).sum(1)
-            gap = (at_k - s_p[bi, p]).abs().max().item()
-            if not gap <= tol:
-                raise AssertionError(f"corr_unfold {h}x{w}: index off the max by {gap}")
-        ms = time_ms(lambda: correlation_argmax_lds(lr, ref, inv), iters=3, warmup=1)
-        plain_ms = time_ms(lambda: correlation_argmax_lds_plain(lr, ref, inv),
-                           iters=1, warmup=1)
-        b, d, l = lr.shape
-        flops = 2.0 * b * l * ref.shape[2] * d
-        bms, by = bound(flops, nbytes(lr, ref, inv, s, idx))
-        rows.append(dict(shape=f"mixed B=2 D=1152 L=Lr={l} ({h}x{w}x128)",
-                         max_abs_err=err, tol=tol, idx_differs=int(diff.shape[0]),
-                         ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms,
-                         bound_by=by, flops=flops,
-                         tflops=flops / ms / 1e9))
-    return rows
+    cases = cases or [((True, False), 180, 320, 128), ((True, False), 95, 165, 128)]
+    return [corr_unfold_row(g, routes, h, w, c) for routes, h, w, c in cases]
 
 
 def bmm_reference(rng_seed: int):
@@ -576,7 +603,7 @@ def check_attn(rng_seed: int):
         attn_w = [wts.ln1_w, wts.ln1_b, wts.wkv, wts.bkv, wts.wq, wts.bq, wts.wp,
                   wts.bp, wts.relbias]
         bms, by = bound(flops, nbytes(x, y, out, *attn_w))
-        rows.append(dict(shape=f"[2,180,320,256] shift {shift}", **e,
+        rows.append(dict(shape=f"[{b},{h},{w},{c}] {heads} heads shift {shift}", **e,
                          planted_faults_rejected=planted, ms=ms,
                          plain_ms=plain_ms, library_ms=None, bound_ms=bms,
                          bound_by=by, flops=flops))
@@ -608,40 +635,49 @@ def check_mlp(rng_seed: int):
                  library_ms=None, bound_ms=bms, bound_by=by, flops=flops)]
 
 
-def check_gather(rng_seed: int):
-    """K10 at the gather-fold's shapes: the one-tile-padded tile rows of the
-    three sharp levels side by side ([B, (H+2)(W+2), 896] bf16) and the nine
-    shifted tile indices of every lv3 position, at B = 2 720p and at a chop
-    tile's lv3; bit-exact against its plain version. The library call is
-    the advanced indexing the port used before K10 (it is the plain version
-    too)."""
+def gather_row(g, b: int, h: int, w: int, r: int, backward: bool = False):
+    """K10 at one gather-fold shape: the one-tile-padded tile rows of the
+    three sharp levels side by side ([b, (h+2)(w+2), r] bf16) and the nine
+    shifted tile indices of every lv3 position; bit-exact against its plain
+    version. The library call is the advanced indexing the port used before
+    K10 (it is the plain version too); with `backward`, also the time of the
+    scatter-add of its backward."""
     import torch
     from speinet_tpu_torch.kernels import row_gather, row_gather_plain
+    from speinet_tpu_torch.kernels.gather import row_scatter_add
     from speinet_tpu_torch.ops.patch_ops import _shift9_flat
 
+    n = (h + 2) * (w + 2)
+    rows = torch.randn((b, n, r), generator=g, device="cuda").to(torch.bfloat16)
+    index = torch.randint(0, h * w, (b, h * w), generator=g, device="cuda")
+    flat = _shift9_flat(index, h, w).contiguous()
+    out = row_gather(rows, flat)
+    ref = row_gather_plain(rows, flat)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise AssertionError(f"row_gather {b}x{h}x{w} rows {r}: not an exact copy")
+    bidx = torch.arange(b, device="cuda")[:, None]
+    bms, by = bound(0.0, nbytes(rows, flat, out))
+    row = dict(shape=f"rows [{b},{n},{r}] idx [{b},{flat.shape[1]}] ({h}x{w} lv3)",
+               max_abs_err=0.0, tol=0.0,
+               ms=time_ms(lambda: row_gather(rows, flat), iters=10),
+               plain_ms=time_ms(lambda: row_gather_plain(rows, flat), iters=10),
+               library_ms=time_ms(lambda: rows[bidx, flat], iters=10),
+               bound_ms=bms, bound_by=by)
+    if backward:
+        go = torch.randn_like(out)
+        row["backward_ms"] = time_ms(lambda: row_scatter_add(go, flat, n), iters=5)
+    return row
+
+
+def check_gather(rng_seed: int):
+    """K10 at B = 2 720p and at a chop tile's lv3, rows 128 + 4*64 + 16*32
+    wide (the template's three levels), by `gather_row`."""
+    import torch
+
     g = torch.Generator(device="cuda").manual_seed(rng_seed)
-    r = 128 + 4 * 64 + 16 * 32
-    rows_out = []
-    for h, w in ((180, 320), (95, 165)):
-        rows = torch.randn((2, (h + 2) * (w + 2), r), generator=g,
-                           device="cuda").to(torch.bfloat16)
-        index = torch.randint(0, h * w, (2, h * w), generator=g, device="cuda")
-        flat = _shift9_flat(index, h, w).contiguous()
-        out = row_gather(rows, flat)
-        ref = row_gather_plain(rows, flat)
-        torch.cuda.synchronize()
-        if not torch.equal(out, ref):
-            raise AssertionError(f"row_gather {h}x{w}: not an exact copy")
-        ms = time_ms(lambda: row_gather(rows, flat), iters=10)
-        plain_ms = time_ms(lambda: row_gather_plain(rows, flat), iters=10)
-        bidx = torch.arange(2, device="cuda")[:, None]
-        lib_ms = time_ms(lambda: rows[bidx, flat], iters=10)
-        bms, by = bound(0.0, nbytes(rows, flat, out))
-        rows_out.append(dict(shape=f"rows [2,{rows.shape[1]},{r}] idx [2,{flat.shape[1]}]"
-                                   f" ({h}x{w} lv3)",
-                             max_abs_err=0.0, tol=0.0, ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, bound_ms=bms, bound_by=by))
-    return rows_out
+    return [gather_row(g, 2, h, w, 128 + 4 * 64 + 16 * 32)
+            for h, w in ((180, 320), (95, 165))]
 
 
 def synthetic_video(n: int, h: int, w: int, seed: int):
@@ -857,6 +893,32 @@ def check_detector(frames):
 
 # --- training -----------------------------------------------------------------
 
+def roll_rows(g, shape, shift: int):
+    """K3 on the Swin stream `shape` bf16, forward by `shift` and the
+    backward launch (shift negated), each an exact copy of its plain
+    version."""
+    import torch
+    from speinet_tpu_torch.kernels import roll2d, roll2d_plain
+
+    x = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    h, w = shape[1:3]
+    rows = []
+    for what, sh in (("forward", shift), ("backward", -shift)):
+        out = roll2d(x, sh, sh)
+        if not torch.equal(out, roll2d_plain(x, sh % h, sh % w)):
+            raise AssertionError(f"roll2d {list(shape)} {what}: not an exact copy")
+        bms, by = bound(0.0, 2 * nbytes(x))
+        rows.append(dict(shape=f"[{','.join(map(str, shape))}] by {sh} ({what})",
+                         max_abs_err=0.0,
+                         ms=time_ms(lambda: roll2d(x, sh, sh), iters=20),
+                         plain_ms=time_ms(lambda: roll2d_plain(x, sh % h, sh % w),
+                                          iters=20),
+                         library_ms=time_ms(lambda: torch.roll(
+                             x, (-sh, -sh), dims=(1, 2)), iters=20),
+                         bound_ms=bms, bound_by=by))
+    return rows
+
+
 def check_train_shapes(rng_seed: int):
     """The three kernels of the train step at its shapes (the template's
     batch 20 at patch 200: lv3 50x50): K3 on the Swin stream [40, 50, 50, 256]
@@ -866,81 +928,13 @@ def check_train_shapes(rng_seed: int):
     inference checks; beside each, the time of its plain PyTorch backward
     where it has one (K5, K10)."""
     import torch
-    from speinet_tpu_torch.kernels import (correlation_argmax_lds,
-                                          correlation_argmax_lds_plain, roll2d,
-                                          roll2d_plain, row_gather, row_gather_plain)
-    from speinet_tpu_torch.kernels.corr import CorrLds, scaled_reference
-    from speinet_tpu_torch.kernels.gather import row_scatter_add
-    from speinet_tpu_torch.models.search_transfer import (patch_inv_norms,
-                                                          unfold_reference)
-    from speinet_tpu_torch.ops.patch_ops import _shift9_flat
 
     g = torch.Generator(device="cuda").manual_seed(rng_seed)
-    rows = {}
-    x = torch.randn((40, 50, 50, 256), generator=g, device="cuda").to(torch.bfloat16)
-    roll_rows = []
-    for what, sh in (("forward", 2), ("backward", -2)):
-        out = roll2d(x, sh, sh)
-        if not torch.equal(out, roll2d_plain(x, sh % 50, sh % 50)):
-            raise AssertionError(f"roll2d train shape {what}: not an exact copy")
-        bms, by = bound(0.0, 2 * nbytes(x))
-        roll_rows.append(dict(shape=f"[40,50,50,256] by {sh} ({what})", max_abs_err=0.0,
-                              ms=time_ms(lambda: roll2d(x, sh, sh), iters=20),
-                              plain_ms=time_ms(lambda: roll2d_plain(x, sh % 50, sh % 50),
-                                               iters=20),
-                              library_ms=time_ms(lambda: torch.roll(
-                                  x, (-sh, -sh), dims=(1, 2)), iters=20),
-                              bound_ms=bms, bound_by=by))
-    rows["roll2d"] = roll_rows
-
-    f = torch.rand((20, 50, 50, 128), generator=g, device="cuda").to(torch.bfloat16)
-    sharp = torch.rand((20, 50, 50, 128), generator=g, device="cuda").to(torch.bfloat16)
-    hs = torch.arange(20, device="cuda") % 2 == 0
-    lr, ref, inv = (t.contiguous() for t in unfold_reference(f, sharp, "mixed", hs,
-                                                             patch_inv_norms(f)))
-    s, idx = correlation_argmax_lds(lr, ref, inv)
-    s_p, idx_p = correlation_argmax_lds_plain(lr, ref, inv)
-    sc = scaled_reference(ref, inv)
-    err, tol, nd = _corr_rule("corr_unfold train shape", s, idx, s_p, idx_p,
-                              lambda bi, p, k: (lr[bi, :, p].float()
-                                                * sc[bi, :, k].float()).sum(1))
-    b, d, l = lr.shape
-    flops = 2.0 * b * l * ref.shape[2] * d
-    bms, by = bound(flops, nbytes(lr, ref, inv, s, idx))
-    leaves = [t.detach().clone().requires_grad_(True) for t in (lr, ref, inv)]
-    gs = torch.randn_like(s)
-
-    def fwd_bwd():
-        out, _ = CorrLds.apply(*leaves)
-        out.backward(gs)
-
-    fwd_ms = time_ms(lambda: correlation_argmax_lds(lr, ref, inv), iters=3, warmup=1)
-    rows["correlation_argmax_lds"] = [dict(
-        shape=f"mixed B=20 D=1152 L=Lr={l} (50x50x128)", max_abs_err=err, tol=tol,
-        idx_differs=nd, ms=fwd_ms,
-        plain_ms=time_ms(lambda: correlation_argmax_lds_plain(lr, ref, inv),
-                         iters=1, warmup=1),
-        library_ms=None, bound_ms=bms, bound_by=by, flops=flops,
-        backward_ms=time_ms(fwd_bwd, iters=3, warmup=1) - fwd_ms)]
-
-    r = 128 + 4 * 64 + 16 * 32
-    tiles = torch.randn((20, 52 * 52, r), generator=g, device="cuda").to(torch.bfloat16)
-    index = torch.randint(0, 2500, (20, 2500), generator=g, device="cuda")
-    flat = _shift9_flat(index, 50, 50).contiguous()
-    out = row_gather(tiles, flat)
-    if not torch.equal(out, row_gather_plain(tiles, flat)):
-        raise AssertionError("row_gather train shape: not an exact copy")
-    go = torch.randn_like(out)
-    bms, by = bound(0.0, nbytes(tiles, flat, out))
-    bidx = torch.arange(20, device="cuda")[:, None]
-    rows["row_gather"] = [dict(
-        shape=f"rows [20,2704,{r}] idx [20,22500] (50x50 lv3)", max_abs_err=0.0,
-        ms=time_ms(lambda: row_gather(tiles, flat), iters=10),
-        plain_ms=time_ms(lambda: row_gather_plain(tiles, flat), iters=10),
-        library_ms=time_ms(lambda: tiles[bidx, flat], iters=10), bound_ms=bms,
-        bound_by=by, backward_ms=time_ms(lambda: row_scatter_add(go, flat, 2704),
-                                         iters=5))]
-    return rows
+    return {"roll2d": roll_rows(g, (40, 50, 50, 256), 2),
+            "correlation_argmax_lds": [corr_unfold_row(g, (True, False) * 10, 50, 50,
+                                                       128, backward=True)],
+            "row_gather": [gather_row(g, 20, 50, 50, 128 + 4 * 64 + 16 * 32,
+                                      backward=True)]}
 
 
 def memory_tree(root, videos, frames_per_video: int, h: int, w: int, seed: int):
@@ -2059,6 +2053,219 @@ def check_pipeline():
     return record
 
 
+# the JAX package's committed figures the evidence phase is held to
+H2H_MIN_STEP600_DB = 14.3          # lowest committed step-600 PSNR, 16.305, less 2
+QUALITY_MIN_EPOCH2_DB = 11.2       # the JAX run's epoch-1 eval (no recalibration)
+DETECTOR_ACC_TOL = 0.01
+# the shipped default detector against a fresh fit (tests/test_torch_evidence.py)
+DEFAULT_COEF_TOL, DEFAULT_STATS_RTOL = 5e-3, 2e-2
+EVIDENCE_TRAIN_NEEDS = ["roll2d", "correlation_argmax_lds", "row_gather"]
+EVIDENCE_EVAL_NEEDS = ["conv2d", "swin_block", "roll2d", "correlation_argmax_lds",
+                       "row_gather"]
+
+
+def check_evidence_shapes(rng_seed: int):
+    """The kernels of the head-to-head model's paths at its shapes (n_feat
+    16, embed 64 over 4 heads of 16 features; train batch 4 at patch 80, so
+    lv3 20x20x64; eval frames 180x220, lv3 45x55x64), each held to its plain
+    version by the rule of its inference check: K1's narrow plans; K2
+    through the head widening of `kernels/swin.py::widen_heads`; K3 on the
+    Swin stream of a train step ([8, 20, 20, 64], forward and backward) and
+    of an eval window ([2, 45, 55, 64]); K5 on the train batch (mixed,
+    D 576, L 400) and on an eval window in each routing (D 576, L 2475);
+    K10 on rows 64 + 4*32 + 16*16 = 448 wide, at the train batch and an
+    eval window."""
+    import torch
+
+    convs = [
+        ("h2h in_conv 5x5 3->16 180x220", (1, 180, 220, 3), 5, 16, 1),
+        ("h2h lv1 res 5x5 16->16 180x220", (1, 180, 220, 16), 5, 16, 1),
+        ("h2h enc1 5x5/2 16->32 180x220", (1, 180, 220, 16), 5, 32, 2),
+        ("h2h enc2 5x5/2 32->64 90x110", (1, 90, 110, 32), 5, 64, 2),
+        ("h2h lv3 res 5x5 64->64 45x55", (1, 45, 55, 64), 5, 64, 1),
+        ("h2h search43 3x3 16->16 180x220", (1, 180, 220, 16), 3, 16, 1),
+    ]
+    g = torch.Generator(device="cuda").manual_seed(rng_seed)
+    r = 64 + 4 * 32 + 16 * 16
+    return {"conv2d": check_conv(rng_seed, convs),
+            "swin_block": check_swin(rng_seed, b=1, h=45, w=55, c=64, heads=4),
+            "roll2d": roll_rows(g, (8, 20, 20, 64), 2) + roll_rows(g, (2, 45, 55, 64), 2),
+            "correlation_argmax_lds": check_corr_unfold(rng_seed, [
+                ((True, False, True, False), 20, 20, 64), ((True,), 45, 55, 64),
+                ((False,), 45, 55, 64)]),
+            "row_gather": [gather_row(g, 4, 20, 20, r, backward=True),
+                           gather_row(g, 1, 45, 55, r)]}
+
+
+def _start_worker(module: str, args, log: str):
+    """An evidence module's CLI in a process of its own, whose launch counts
+    start at 0 (it writes them with its results)."""
+    import os
+
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    return subprocess.Popen([sys.executable, "-m", module] + args,
+                            stdout=open(log, "w"), stderr=subprocess.STDOUT, env=env,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def _finish_worker(proc, out: str, log: str, what: str, timeout: float) -> dict:
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    text = open(log).read()
+    if rc != 0:
+        raise AssertionError(f"evidence {what}: exit {rc}\n{text[-4000:]}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def check_evidence():
+    """The evidence modules on the card (`speinet_tpu_torch/evidence/`):
+    (a) the head-to-head tree and plan, then 600 steps of the port for seeds
+    11 and 12 at the committed shrunk config (eval every 100 steps): losses
+    finite, the train steps launching K3 forward and backward, K5 and K10
+    and no kernel without a backward, the evals K1, K2, K3, K5 and K10, each
+    seed's step-600 PSNR >= 14.3 dB and above its step-100 one; (b) the
+    quality run for 2 epochs (`--steps 156`, 39 steps of the generated
+    tree each) at the template's width (4 lowpass videos of 150 256x320
+    frames, batch 4, patch 200, BatchNorm
+    recalibrated over 8 batches, 20 eval frames): every summary value
+    finite, the trainer's epoch-2 eval PSNR >= 11.2 dB; (c) the detector
+    grid's cell ratio 0.5, k 11 on the full tree (6 videos of 200 240x320
+    frames): each accuracy within 0.01 of the JAX package's on that tree
+    (`scripts/detector_evidence.py` at its defaults on the CPU,
+    docs/detector_eval_torch/jax_cpu_summary.json; the committed
+    docs/detector_eval/summary.json came from a larger tree, ROADMAP §3, and
+    is printed beside it);
+    (d) the default detector's fit: its held-out accuracy, its coefficients
+    against the shipped npz. The three training runs go in processes of
+    their own, started together (the small model's steps are bound by the
+    host's launches, so they share the card well); (c) and (d) run here
+    meanwhile."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    record = {"shapes": check_evidence_shapes(0)}
+    workers = []
+    with tempfile.TemporaryDirectory() as work:
+        try:
+            return _run_evidence(record, work, here, workers)
+        finally:
+            for proc in workers:      # none outlives the phase
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+
+
+def _run_evidence(record, work: str, here: str, workers: list) -> dict:
+    import os
+
+    import numpy as np
+    from speinet_tpu_torch.detector.classifier import LogisticRegression
+    from speinet_tpu_torch.evidence import default_detector, detector
+    from speinet_tpu_torch.evidence import head_to_head as h2h
+
+    failures = []
+    t0 = time.time()
+    q_out, q_log = os.path.join(work, "q_out"), os.path.join(work, "quality.log")
+    quality = _start_worker("speinet_tpu_torch.evidence.quality", [
+        "--steps", "156", "--epochs", "2", "--work", os.path.join(work, "q"),
+        "--out", q_out], q_log)
+    workers.append(quality)
+    root = os.path.join(work, "h2h")
+    h2h.phase_gen(root, 600)
+    gen_s = time.time() - t0
+    seeds = {}
+    for seed in (11, 12):
+        out, log = os.path.join(root, h2h.curve_name("port", seed)), \
+            os.path.join(work, f"h2h_{seed}.log")
+        seeds[seed] = (_start_worker("speinet_tpu_torch.evidence.head_to_head", [
+            "--phase", "port", "--root", root, "--seed", str(seed)], log), out, log)
+        workers.append(seeds[seed][0])
+
+    t1 = time.time()
+    sharp = os.path.join(work, "det", "sharp")
+    detector.make_detector_videos(sharp)
+    cell = detector.grid_cell(sharp, 0.5, 11, os.path.join(work, "det", "pickle"),
+                              None)
+    with open(os.path.join(here, "docs", "detector_eval_torch", "jax_cpu_summary.json")) as f:
+        want = json.load(f)["ratio=0.5 k=11"]
+    with open(os.path.join(here, "docs", "detector_eval", "summary.json")) as f:
+        committed = json.load(f)["ratio=0.5 k=11"]
+    record["detector"] = dict(cell=cell, jax_package=want, committed=committed,
+                              seconds=time.time() - t1)
+    off = {m: abs(cell[m] - want[m]) for m in want}
+    if set(cell) != set(want) or max(off.values()) > DETECTOR_ACC_TOL:
+        failures.append(f"detector cell ratio 0.5 k 11: {cell} vs {want}")
+
+    t1 = time.time()
+    x, y = default_detector.features_and_labels("cuda")
+    lr, m = default_detector.fit(x, y)
+    shipped = LogisticRegression.load()
+    coef_off = float(np.abs(lr.coef - shipped.coef).max() / np.abs(shipped.coef).max())
+    stats_off = float(max(np.abs(lr.mean / shipped.mean - 1).max(),
+                          np.abs(lr.scale / shipped.scale - 1).max()))
+    record["default_detector"] = dict(
+        n=len(y), metrics=m, coef=lr.coef.tolist(), intercept=lr.intercept,
+        coef_off_share_of_max=coef_off, stats_rel_off=stats_off,
+        seconds=time.time() - t1)
+    if coef_off > DEFAULT_COEF_TOL or stats_off > DEFAULT_STATS_RTOL:
+        failures.append(f"default detector vs shipped: {record['default_detector']}")
+
+    curves = {}
+    for seed, (proc, out, log) in seeds.items():
+        rec = _finish_worker(proc, out, log, f"head-to-head seed {seed}", 900)
+        psnr = {c["step"]: c["psnr"] for c in rec["curve"]}
+        curves[seed] = rec
+        bad = [v for v in rec["losses"] if not np.isfinite(v)]
+        missing = [k for k in EVIDENCE_TRAIN_NEEDS if rec["train_launches"][k] <= 0]
+        if rec["train_backward_launches"]["roll2d"] <= 0:
+            missing.append("roll2d (backward)")
+        missing += [f"{k} (eval)" for k in EVIDENCE_EVAL_NEEDS
+                    if rec["launches"][k] - rec["train_launches"][k] <= 0]
+        stray = [k for k in TRAIN_SHUNS["SPEINet"] if rec["train_launches"][k] > 0]
+        if bad or missing or stray:
+            raise AssertionError(f"head-to-head seed {seed}: non-finite losses "
+                                 f"{bad[:3]}, missing {missing}, stray {stray}")
+        if not (psnr.get(600, 0.0) >= H2H_MIN_STEP600_DB
+                and psnr[600] > psnr.get(100, float("inf"))):
+            raise AssertionError(f"head-to-head seed {seed} curve: {rec['curve']}")
+    record["head_to_head"] = {
+        seed: dict(curve=r["curve"], seconds=r["seconds"], launches=r["launches"],
+                   train_launches=r["train_launches"],
+                   backward_launches=r["backward_launches"],
+                   train_backward_launches=r["train_backward_launches"],
+                   loss_first_last=[r["losses"][0], r["losses"][-1]])
+        for seed, r in curves.items()}
+    record["head_to_head_gen_s"] = gen_s
+    record["head_to_head_mean_step600_db"] = float(np.mean(
+        [next(c["psnr"] for c in r["curve"] if c["step"] == 600)
+         for r in curves.values()]))
+
+    summary = _finish_worker(quality, os.path.join(q_out, "summary.json"), q_log,
+                             "quality", 900)
+    launches = summary.pop("launches")
+    backward = summary.pop("backward_launches")
+    psnr_log = np.load(os.path.join(q_out, "psnr.npy")).tolist()
+    record["quality"] = dict(summary=summary, trainer_eval_psnr=psnr_log,
+                             launches=launches, backward_launches=backward)
+    finite = all(isinstance(v, (int, float)) and np.isfinite(v)
+                 for v in summary.values())
+    missing = [k for k in EVIDENCE_EVAL_NEEDS if launches[k] <= 0]
+    if backward["roll2d"] <= 0:
+        missing.append("roll2d (backward)")
+    if not finite or missing or len(psnr_log) != 2 \
+            or not psnr_log[1] >= QUALITY_MIN_EPOCH2_DB:
+        raise AssertionError(f"quality: {record['quality']}, missing {missing}")
+    record["seconds"] = time.time() - t0
+    if failures:
+        raise AssertionError("; ".join(failures) + f"\n{json.dumps(record)}")
+    return record
+
+
 def cfg_template():
     """The SPEINet template, in bf16, as every phase runs it."""
     from speinet_tpu_torch.config import Config, set_template
@@ -2306,6 +2513,32 @@ def main() -> int:
     t1 = time.time()
     print("pipeline: " + json.dumps(check_pipeline()), flush=True)
     print(f"pipeline: checked in {time.time() - t1:.1f} s", flush=True)
+
+    # the evidence modules; each training run's launches are counted in its
+    # own process from 0 (train steps and evals of a head-to-head seed, the
+    # quality run's epochs, test()s and inference)
+    t1 = time.time()
+    ev = check_evidence()
+    print("evidence: " + json.dumps(ev), flush=True)
+    for seed, r in ev["head_to_head"].items():
+        print(f"evidence head-to-head seed {seed}: PSNR by step "
+              + json.dumps({c["step"]: c["psnr"] for c in r["curve"]})
+              + f", {r['seconds']:.1f} s; {smi}", flush=True)
+    q = ev["quality"]
+    print(f"evidence quality (2 epochs of 39 steps): trainer eval PSNR by epoch "
+          f"{q['trainer_eval_psnr']}, summary {json.dumps(q['summary'])}; {smi}",
+          flush=True)
+    print(f"evidence detector ratio 0.5 k 11: {ev['detector']['cell']} (JAX package on "
+          f"the CPU: {ev['detector']['jax_package']}; committed: "
+          f"{ev['detector']['committed']}); default detector accuracy "
+          f"{ev['default_detector']['metrics']['accuracy']:.4f}; {smi}", flush=True)
+    print(f"evidence: checked in {time.time() - t1:.1f} s", flush=True)
+    for name, c in ([(f"h2h_s{seed}", r["launches"])
+                     for seed, r in ev["head_to_head"].items()]
+                    + [("quality", q["launches"])]):
+        by_path[name] = c
+        for k in launches:
+            launches[k] += c[k]
 
     meta = {
         "conv2d": ("speinet_tpu_torch/csrc/conv.cu",

@@ -13,7 +13,10 @@ block's residual stream after the attention, x + K8's output un-rolled,
 and adds the MLP. A CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises. None of the three has a backward (training
 runs the XLA-style block in `models/swinir.py`, as the JAX package does),
-so each refuses inputs that need a gradient.
+so each refuses inputs that need a gradient. K2 and K8 compute heads of
+32 features; a narrower head dim that divides 32 (the 64-wide, 4-head
+fusion of the head-to-head model) runs through `widen_heads`, which
+copies the channels and zero-pads each head to 32.
 """
 
 from __future__ import annotations
@@ -112,13 +115,16 @@ def window_mask(hp: int, wp: int, ws: int, shift: int, pad_h: int,
 
 
 def _attention_plain(x: torch.Tensor, y: torch.Tensor, wts: SwinBlockWeights,
-                     ws: int, shift: int, pad_h: int, pad_w: int, heads: int):
+                     ws: int, shift: int, pad_h: int, pad_w: int, heads: int,
+                     scale: float | None = None):
     """The window kernels' attention arithmetic in float32, rounding to
     x.dtype where they store (LN'd rows, Q/K/V, softmax probabilities, the
-    attention output): (raw x windows, O Wp^T + bp) as [B*nW, N, C] f32."""
+    attention output): (raw x windows, O Wp^T + bp) as [B*nW, N, C] f32.
+    Q is scaled by `scale`, the head dim's -1/2 power unless given."""
     hp, wp, c = x.shape[1:]
     n = ws * ws
     hd = c // heads
+    scale = hd ** -0.5 if scale is None else scale
     rnd = lambda t: t.to(x.dtype).float()
     xw_raw = window_partition(x, ws).float()
     yw_raw = window_partition(y, ws).float()
@@ -126,7 +132,7 @@ def _attention_plain(x: torch.Tensor, y: torch.Tensor, wts: SwinBlockWeights,
     xw = rnd(layer_norm(xw_raw, wts.ln1_w, wts.ln1_b))
     yw = rnd(layer_norm(yw_raw, wts.ln1_w, wts.ln1_b))
     kv = rnd(xw @ wts.wkv.float().T + wts.bkv)
-    q = rnd((yw @ wts.wq.float().T + wts.bq) * (hd ** -0.5))
+    q = rnd((yw @ wts.wq.float().T + wts.bq) * scale)
     k, v = kv[..., :c], kv[..., c:]
     q = q.reshape(bw, n, heads, hd).transpose(1, 2)
     k = k.reshape(bw, n, heads, hd).transpose(1, 2)
@@ -155,12 +161,13 @@ def _mlp_plain(xf: torch.Tensor, wts: SwinBlockWeights,
 
 def swin_block_plain(x: torch.Tensor, y: torch.Tensor, wts: SwinBlockWeights,
                      ws: int, shift: int, pad_h: int, pad_w: int,
-                     heads: int) -> torch.Tensor:
+                     heads: int, scale: float | None = None) -> torch.Tensor:
     """K2's arithmetic in float32, rounding to x.dtype where the kernel
     stores: the attention's (`_attention_plain`), LN2 and the GELU output;
     residual stream in f32."""
     hp, wp = x.shape[1:3]
-    xw_raw, res = _attention_plain(x, y, wts, ws, shift, pad_h, pad_w, heads)
+    xw_raw, res = _attention_plain(x, y, wts, ws, shift, pad_h, pad_w, heads,
+                                   scale)
     x2 = xw_raw + res
     out = (x2 + _mlp_plain(x2, wts, x.dtype)).to(x.dtype)
     return window_reverse(out, ws, hp, wp)
@@ -168,11 +175,11 @@ def swin_block_plain(x: torch.Tensor, y: torch.Tensor, wts: SwinBlockWeights,
 
 def window_cross_attention_plain(x: torch.Tensor, y: torch.Tensor,
                                  wts: SwinBlockWeights, ws: int, shift: int,
-                                 pad_h: int, pad_w: int,
-                                 heads: int) -> torch.Tensor:
+                                 pad_h: int, pad_w: int, heads: int,
+                                 scale: float | None = None) -> torch.Tensor:
     """K8's arithmetic: K2's attention, its projection rounded to x.dtype."""
     hp, wp = x.shape[1:3]
-    _, res = _attention_plain(x, y, wts, ws, shift, pad_h, pad_w, heads)
+    _, res = _attention_plain(x, y, wts, ws, shift, pad_h, pad_w, heads, scale)
     return window_reverse(res.to(x.dtype), ws, hp, wp)
 
 
@@ -230,10 +237,64 @@ def _require_weights(wts: SwinBlockWeights, dev: torch.device, mats, vecs) -> No
         _lib.require_cuda_tensor(getattr(wts, name), name, torch.float32, dev)
 
 
+KERNEL_HEAD_DIM = 32     # the window kernels' head dim (csrc/swin_wgmma.cuh HD)
+
+
+def head_replicas(c: int, heads: int) -> int:
+    """How many copies of the C channels the window kernels run on: 1 at
+    head dim 32; at a head dim d that divides 32, r = 32 / d copies, so
+    that each head can be zero-padded to 32 (`widen_heads`). 0 where the
+    kernels cannot take the shape (r C over 256)."""
+    d = c // heads
+    if d > KERNEL_HEAD_DIM or KERNEL_HEAD_DIM % d:
+        return 0
+    r = KERNEL_HEAD_DIM // d
+    return r if r * c <= 256 else 0
+
+
 def _require_window_kernel(what: str, ws: int, c: int, heads: int) -> None:
-    if ws != 5 or c // heads != 32 or c > 256:
+    if ws != 5 or not head_replicas(c, heads):
         raise ValueError(f"{what} kernel takes window 5, head dim 32 and "
-                         f"C <= 256; got window {ws}, C {c}, {heads} heads")
+                         f"C <= 256, or a head dim d that divides 32 with "
+                         f"(32 / d) C <= 256; got window {ws}, C {c}, "
+                         f"{heads} heads")
+
+
+def widen_heads(x: torch.Tensor, y: torch.Tensor, wts: SwinBlockWeights,
+                heads: int):
+    """The window kernels' operands for a head dim d below 32: (x, y, wts)
+    over r = 32 / d copies of the C channels, each head's Q, K, V zero-padded
+    from d to 32 features. LayerNorm over r identical copies has the same
+    statistics; zero features add nothing to q.k and give zero outputs,
+    which the projection's zero columns drop; the projection, the
+    residual and the MLP's output are copied r times, fc1 reads the first
+    copy. The kernel's output over r C channels holds the block's output
+    r times; the first C channels are it. The caller passes the scale of
+    the head dim d. At head dim 32 the operands are returned unchanged."""
+    c = x.shape[-1]
+    r = head_replicas(c, heads)
+    if r == 1:
+        return x, y, wts
+    d = c // heads
+
+    def pad_heads(t):      # leading axis heads * d -> heads * 32, zeros after d
+        t = t.reshape(heads, d, *t.shape[1:])
+        t = F.pad(t, (0, 0) * (t.ndim - 2) + (0, KERNEL_HEAD_DIM - d))
+        return t.reshape(heads * KERNEL_HEAD_DIM, *t.shape[2:])
+
+    pad_in = lambda w: F.pad(w, (0, (r - 1) * c)).contiguous()   # reads copy 0
+    copies = lambda t: t.repeat(r, *([1] * (t.ndim - 1))).contiguous()
+    kw, vw = wts.wkv[:c], wts.wkv[c:]
+    kb, vb = wts.bkv[:c], wts.bkv[c:]
+    wide = SwinBlockWeights(
+        copies(wts.ln1_w), copies(wts.ln1_b),
+        torch.cat([pad_in(pad_heads(kw)), pad_in(pad_heads(vw))]).contiguous(),
+        torch.cat([pad_heads(kb), pad_heads(vb)]).contiguous(),
+        pad_in(pad_heads(wts.wq)), pad_heads(wts.bq).contiguous(),
+        copies(pad_heads(wts.wp.t()).t()), copies(wts.bp), wts.relbias,
+        copies(wts.ln2_w), copies(wts.ln2_b), pad_in(wts.w1), wts.b1,
+        copies(wts.w2), copies(wts.b2))
+    return x.repeat(1, 1, 1, r), y.repeat(1, 1, 1, r), wide
 
 
 def _require_mlp_kernel(what: str, c: int, hidden: int) -> None:
@@ -266,6 +327,8 @@ def swin_block(x: torch.Tensor, y: torch.Tensor, wts: SwinBlockWeights,
     _lib.require_cuda_tensor(x, "x", torch.bfloat16, dev)
     _lib.require_cuda_tensor(y, "y", torch.bfloat16, dev)
     _require_weights(wts, dev, _ATTN_MATS + _MLP_MATS, _ATTN_VECS + _MLP_VECS)
+    scale = float((c // heads) ** -0.5)
+    x, y, wts = widen_heads(x, y, wts, heads)
     out = torch.empty_like(x)
     ptr = lambda t: t.data_ptr()
     lib = _lib.library()
@@ -273,11 +336,11 @@ def swin_block(x: torch.Tensor, y: torch.Tensor, wts: SwinBlockWeights,
         ptr(x), ptr(y), ptr(out), ptr(wts.ln1_w), ptr(wts.ln1_b), ptr(wts.wkv),
         ptr(wts.bkv), ptr(wts.wq), ptr(wts.bq), ptr(wts.wp), ptr(wts.bp),
         ptr(wts.relbias), ptr(wts.ln2_w), ptr(wts.ln2_b), ptr(wts.w1),
-        ptr(wts.b1), ptr(wts.w2), ptr(wts.b2), b, hp, wp, c, hidden, heads,
-        ws, shift, hp - pad_h, wp - pad_w, float((c // heads) ** -0.5),
+        ptr(wts.b1), ptr(wts.w2), ptr(wts.b2), b, hp, wp, x.shape[-1], hidden,
+        heads, ws, shift, hp - pad_h, wp - pad_w, scale,
         _lib.stream_ptr(x)), "swin_block")
     _lib.LAUNCHES["swin_block"] += 1
-    return out
+    return out[..., :c].contiguous() if out.shape[-1] != c else out
 
 
 def window_cross_attention(x: torch.Tensor, y: torch.Tensor,
@@ -298,16 +361,18 @@ def window_cross_attention(x: torch.Tensor, y: torch.Tensor,
     _lib.require_cuda_tensor(x, "x", torch.bfloat16, dev)
     _lib.require_cuda_tensor(y, "y", torch.bfloat16, dev)
     _require_weights(wts, dev, _ATTN_MATS, _ATTN_VECS)
+    scale = float((c // heads) ** -0.5)
+    x, y, wts = widen_heads(x, y, wts, heads)
     out = torch.empty_like(x)
     ptr = lambda t: t.data_ptr()
     lib = _lib.library()
     _lib.check(lib.speinet_swin_attn(
         ptr(x), ptr(y), ptr(out), ptr(wts.ln1_w), ptr(wts.ln1_b), ptr(wts.wkv),
         ptr(wts.bkv), ptr(wts.wq), ptr(wts.bq), ptr(wts.wp), ptr(wts.bp),
-        ptr(wts.relbias), b, hp, wp, c, heads, ws, shift, hp - pad_h, wp - pad_w,
-        float((c // heads) ** -0.5), _lib.stream_ptr(x)), "window_cross_attention")
+        ptr(wts.relbias), b, hp, wp, x.shape[-1], heads, ws, shift, hp - pad_h,
+        wp - pad_w, scale, _lib.stream_ptr(x)), "window_cross_attention")
     _lib.LAUNCHES["window_cross_attention"] += 1
-    return out
+    return out[..., :c].contiguous() if out.shape[-1] != c else out
 
 
 def ln_mlp(x: torch.Tensor, wts: SwinBlockWeights) -> torch.Tensor:
