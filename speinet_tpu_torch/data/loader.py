@@ -29,6 +29,7 @@ import torch
 from speinet_tpu_torch.config import Config
 from speinet_tpu_torch.data.videodata import VideoDataset
 from speinet_tpu_torch.parallel.mesh import rank, world
+from speinet_tpu_torch.utils.spans import span
 
 
 class BatchIterator:
@@ -105,16 +106,24 @@ PREFETCH_DEPTH = 2
 def prefetch_to_device(iterator, device: torch.device):
     """Overlap host batch assembly with device compute: the numpy arrays of
     each batch are placed on `device` PREFETCH_DEPTH batches ahead of use
-    (other entries pass through). A producer error is raised in the consumer."""
+    (other entries pass through). A producer error is raised in the consumer.
+    Spans: `loader.batch` around each batch's next() and upload in the
+    producer thread, `loader.wait` around the consumer's wait for it."""
     q: "queue.Queue" = queue.Queue(maxsize=PREFETCH_DEPTH)
     sentinel = object()
     failure = []
 
     def producer():
         try:
-            for batch in iterator:
-                q.put(tuple(to_device(a, device) if isinstance(a, np.ndarray)
-                            else a for a in batch))
+            it = iter(iterator)
+            while True:
+                with span("loader.batch"):
+                    batch = next(it, sentinel)
+                    if batch is sentinel:
+                        break
+                    batch = tuple(to_device(a, device) if isinstance(a, np.ndarray)
+                                  else a for a in batch)
+                q.put(batch)
         except Exception as e:     # handed to the consumer, re-raised there
             failure.append(e)
         finally:
@@ -123,7 +132,8 @@ def prefetch_to_device(iterator, device: torch.device):
     t = threading.Thread(target=producer, daemon=True)
     t.start()
     while True:
-        item = q.get()
+        with span("loader.wait"):
+            item = q.get()
         if item is sentinel:
             break
         yield item

@@ -67,6 +67,8 @@ from speinet_tpu_torch.parallel.mesh import (active, dp_world, is_main,
                                              maybe_init_distributed, shard_rows)
 from speinet_tpu_torch.utils.checkpoint import model_state_dict
 from speinet_tpu_torch.utils.image_io import imread, imwrite
+from speinet_tpu_torch.utils import spans
+from speinet_tpu_torch.utils.spans import span
 
 # --default_data presets: (data_path, result_path) relative to the working
 # tree (parity: inference_SPEINet.py:626-697, which hardcodes user paths)
@@ -209,10 +211,9 @@ class Inference:
         if active():
             self.logger.write_log(f"dp group: {n_dp} device(s), "
                                   f"batch_windows={self.batch_windows}")
-        # seconds spent in each engine stage, each ended by a device sync:
-        # the cached engine's legs / anchor / restore, the direct forward
-        self.stage_seconds = {"legs": 0.0, "anchor": 0.0, "restore": 0.0,
-                              "forward": 0.0}
+        # seconds spent in each stage of the cached engine, each ended by a
+        # device sync
+        self.stage_seconds = {"legs": 0.0, "anchor": 0.0, "restore": 0.0}
         self.total_psnr: Dict[str, List[float]] = {}
         self.total_ssim: Dict[str, List[float]] = {}
 
@@ -220,11 +221,14 @@ class Inference:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _timed(self, stage: str, fn, *args):
-        t0 = time.time()
-        out = fn(*args)
-        self._sync()
-        self.stage_seconds[stage] += time.time() - t0
+    def _timed(self, stage: str, fn, *args, n: int = 1):
+        """fn(*args) in the span `engine.<stage>` (n: frames or windows),
+        its seconds up to a device sync added to `stage_seconds[stage]`."""
+        with span("engine." + stage, n):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            self._sync()
+            self.stage_seconds[stage] += time.perf_counter() - t0
         return out
 
     def infer_video(self, v: str, input_frames: Sequence[str],
@@ -326,13 +330,17 @@ class Inference:
                     futures[w] = pool.submit(self._prepare_window, input_seqs[w],
                                              gt_seqs[w], pre_lists[w], sub_lists[w],
                                              padded_inputs, load)
-            chunk = [futures.pop(w).result() for w in range(s, min(s + bw, n_win))]
-            x = torch.from_numpy(np.stack([c[1] for c in chunk])).to(self.device)
+            wins = range(s, min(s + bw, n_win))
+            with span("engine.feed_wait", len(wins)):
+                chunk = [futures.pop(w).result() for w in wins]
+            with span("engine.upload", len(chunk)):
+                x = torch.from_numpy(np.stack([c[1] for c in chunk])).to(self.device)
             t_pre = time.time()
-            out = self._timed("forward", self._forward, x)
-            self._score_chunk(v, [c[0] for c in chunk], out,
-                              [lambda g=c[2]: g for c in chunk], start, t_pre,
-                              video_psnr, video_ssim)
+            out = self._forward(x)
+            with span("engine.score", len(chunk)):
+                self._score_chunk(v, [c[0] for c in chunk], out,
+                                  [lambda g=c[2]: g for c in chunk], start, t_pre,
+                                  video_psnr, video_ssim)
         return video_psnr, video_ssim
 
     def _infer_video_cached(self, v, input_frames, gt_frames, labels, load, pool):
@@ -361,14 +369,17 @@ class Inference:
         decoded, feat, anchors = {}, {}, {}
 
         def to_dev(arr: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(arr).to(dev)
+            with span("engine.upload", len(arr)):
+                return torch.from_numpy(arr).to(dev)
 
         def ensure_feats(paths):
             need = [p for p in dict.fromkeys(paths) if p not in feat]
             for i in range(0, len(need), bw):
                 chunk = need[i:i + bw]
-                arr = np.stack([decoded[p].result() for p in chunk])
-                m, n = self._timed("legs", self.model.encode_window_legs, to_dev(arr))
+                with span("engine.feed_wait", len(chunk)):
+                    arr = np.stack([decoded[p].result() for p in chunk])
+                m, n = self._timed("legs", self.model.encode_window_legs, to_dev(arr),
+                                   n=len(chunk))
                 for k, p in enumerate(chunk):
                     feat[p] = (m[k:k + 1], n[k:k + 1])
 
@@ -378,7 +389,8 @@ class Inference:
             if key == "<ZERO>":
                 arr = np.zeros((1, 3, nh, nw), np.float32)
             else:
-                arr = decoded[key].result()[None]
+                with span("engine.feed_wait"):
+                    arr = decoded[key].result()[None]
             anchors[key] = self._timed("anchor", self.model.anchor_pyramid,
                                        to_dev(arr))
 
@@ -393,8 +405,9 @@ class Inference:
             gts = [pool.submit(lambda k: load(k)[:nh, :nw], gt_seqs[w][n_seq // 2])
                    for w in wins]
             chunk_paths = [p for w in wins for p in (metas[w][0],) + metas[w][1]]
-            for p in dict.fromkeys(chunk_paths):
-                if p not in feat:
+            waits = [p for p in dict.fromkeys(chunk_paths) if p not in feat]
+            with span("engine.feed_wait", len(waits)):
+                for p in waits:
                     decoded[p].result()
             t_pre = time.time()
             ensure_feats(chunk_paths)
@@ -418,10 +431,11 @@ class Inference:
                 cat([anchors[metas[w][3]][0] for w in wins]),
                 cat([anchors[metas[w][3]][1] for w in wins]),
                 cat([anchors[metas[w][3]][2] for w in wins]),
-                torch.tensor(hs, device=dev))
+                torch.tensor(hs, device=dev), n=len(wins))
             names = [os.path.basename(metas[w][0]).split(".")[0] for w in wins]
-            self._score_chunk(v, names, out, [g.result for g in gts], start, t_pre,
-                              video_psnr, video_ssim)
+            with span("engine.score", len(names)):
+                self._score_chunk(v, names, out, [g.result for g in gts], start, t_pre,
+                                  video_psnr, video_ssim)
             # evict what no remaining window needs
             horizon = s + bw
             for p in [p for p, i in last_pos.items() if i < horizon]:
@@ -475,15 +489,20 @@ def profile_run(fn, trace_dir: str, device: torch.device):
     """fn() under torch.profiler, host activity and, on the card, its
     kernels; the trace goes into `trace_dir` as a TensorBoard / Chrome trace
     (`*.pt.trace.json`), as the JAX package's --profile writes a
-    jax.profiler trace."""
+    jax.profiler trace. The engine's and the model's spans (`engine.*`,
+    `restore.*`, `model.forward`; `utils/spans.py`) are in it as ranges;
+    the spans the session kept are dropped when it ends."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(trace_dir)):
-        return fn()
+    try:
+        with profile(activities=activities,
+                     on_trace_ready=tensorboard_trace_handler(trace_dir)):
+            return fn()
+    finally:
+        spans.reset()
 
 
 def main(argv=None):

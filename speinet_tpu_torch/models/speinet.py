@@ -48,6 +48,7 @@ from speinet_tpu_torch.models.search_transfer import SelfTransfer, transfer
 from speinet_tpu_torch.models.swinir import SwinIRCross, swin_fuse
 from speinet_tpu_torch.ops.filters import box_kernel, richardson_lucy
 from speinet_tpu_torch.ops.resize import bicubic_upsample_nhwc
+from speinet_tpu_torch.utils.spans import span
 
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int) -> nn.Module:
@@ -221,14 +222,18 @@ class SPEINet(nn.Module):
                  routing: str, has_sharp: torch.Tensor | None = None,
                  train: bool = False,
                  generator: torch.Generator | None = None) -> torch.Tensor:
-        f_fusion = swin_fuse(self.swin, f_mid, neighbor_feats, self.dtype, train,
-                             generator)
-        f_fusion = self._c1(self.fusion, f_fusion)
-        weight_s, t3, t2, t1 = transfer(self.SelfTransfer, f_fusion, sharp_lv1,
-                                        sharp_lv2, sharp_lv3, routing, self.dtype,
-                                        has_sharp, **self.corr_paths)
-        out = self._decode(f_fusion, weight_s.to(self.dtype), t3, t2, t1, train)
-        return out.permute(0, 3, 1, 2).float()
+        b = f_mid.shape[0]
+        with span("restore.fusion", b, device=True):
+            f_fusion = swin_fuse(self.swin, f_mid, neighbor_feats, self.dtype, train,
+                                 generator)
+            f_fusion = self._c1(self.fusion, f_fusion)
+        with span("restore.transfer", b, device=True):
+            weight_s, t3, t2, t1 = transfer(self.SelfTransfer, f_fusion, sharp_lv1,
+                                            sharp_lv2, sharp_lv3, routing, self.dtype,
+                                            has_sharp, **self.corr_paths)
+        with span("restore.decode", b, device=True):
+            out = self._decode(f_fusion, weight_s.to(self.dtype), t3, t2, t1, train)
+            return out.permute(0, 3, 1, 2).float()
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -245,10 +250,11 @@ class SPEINet(nn.Module):
         gates normalise with the batch statistics of the stacked legs and
         update their running statistics, and DropPath draws from
         `generator`."""
-        if not train:
-            with torch.no_grad():
-                return self._forward(x, False, None)
-        return self._forward(x, True, generator)
+        with span("model.forward", device=True):
+            if not train:
+                with torch.no_grad():
+                    return self._forward(x, False, None)
+            return self._forward(x, True, generator)
 
     def _forward(self, x: torch.Tensor, train: bool,
                  generator: torch.Generator | None) -> torch.Tensor:

@@ -29,6 +29,7 @@ from speinet_tpu_torch.models import compute_dtype
 from speinet_tpu_torch.models.blocks import conv1x1
 from speinet_tpu_torch.models.recons_video import ReconsVideo
 from speinet_tpu_torch.models.swinir import SwinIRCross, swin_fuse
+from speinet_tpu_torch.utils.spans import span
 
 
 class SWINT(nn.Module):
@@ -71,10 +72,11 @@ class SWINT(nn.Module):
         the restored centre frame [B, 3, H, W] float32. Inference runs
         without autograd; with `train` the convs and Swin blocks take their
         training forms and DropPath draws from `generator`."""
-        if not train:
-            with torch.no_grad():
-                return self._forward(x, False, None)
-        return self._forward(x, True, generator)
+        with span("model.forward", device=True):
+            if not train:
+                with torch.no_grad():
+                    return self._forward(x, False, None)
+            return self._forward(x, True, generator)
 
     def _forward(self, x: torch.Tensor, train: bool,
                  generator: torch.Generator | None) -> torch.Tensor:

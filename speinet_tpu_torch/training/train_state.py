@@ -39,6 +39,7 @@ from speinet_tpu_torch.parallel.mesh import average_gradients
 from speinet_tpu_torch.training.adversarial import (GanState, discriminator_step,
                                                     init_gan_state)
 from speinet_tpu_torch.training.loss import LossComputer, parse_loss_spec
+from speinet_tpu_torch.utils.spans import span
 
 
 def lr_for_epoch(cfg: Config, epoch: int) -> float:
@@ -77,10 +78,13 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     the device. The model's gradients stay in `.grad`."""
     optimizer.zero_grad(set_to_none=True)
     out = model(inp, train=True, generator=generator)
-    total, comps = loss_computer(out, gt, generator, gan)
-    total.backward()
-    average_gradients(model.parameters())
-    optimizer.step()
+    with span("train.loss", device=True):
+        total, comps = loss_computer(out, gt, generator, gan)
+    with span("train.backward", device=True):
+        total.backward()
+        average_gradients(model.parameters())
+    with span("train.optimizer", device=True):
+        optimizer.step()
     comps = {k: v.detach() for k, v in comps.items()}
     if loss_computer.has_gan:
         comps["DIS"] = discriminator_step(gan, out, gt, optimizer.param_groups[0]["lr"],

@@ -3,7 +3,8 @@
 - `python -m speinet_tpu_torch.infer --profile DIR`: the run restores every
   frame as without the flag and leaves one torch.profiler trace in DIR,
   which holds the model's operators (on the card also its kernels:
-  chip_smoke.py's profile phase).
+  chip_smoke.py's profile phase) and the engine's spans, which the program
+  no longer keeps once the session has ended.
 - `python -m speinet_tpu_torch.main_train` with --n_sequence 5 and a loss
   spec with VGG and GAN terms.
 """
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from speinet_tpu_torch.infer import main
+from speinet_tpu_torch.utils.spans import recorded
 from test_torch_engine import _tree
 from test_torch_train import _one_torch_thread  # noqa: F401
 
@@ -31,6 +33,8 @@ def test_profile_writes_a_trace(tmp_path):
     assert len(traces) == 1
     names = {e.get("name", "") for e in json.loads(traces[0].read_text())["traceEvents"]}
     assert "aten::conv2d" in names and "aten::bmm" in names
+    assert {"engine.restore", "engine.score", "restore.fusion"} <= names
+    assert recorded() == []
     log = next((tmp_path / "res").glob("inference_log_*.txt")).read_text()
     assert log.count("> video00-") == 4
 
