@@ -5,8 +5,12 @@ Per video: sharp labels (from `label/<video>.npy`, or from the sharpness
 detector when the tree has no `label/` directory), border-padded sliding
 windows of `n_sequence` frames (3 by default) with the pre/sub sharp
 anchors and the >7-frame zero rule, windows restored `batch_windows` at a
-time, PSNR (float64 host, border crop 4) and MATLAB SSIM, PNGs, and the
-reference's `inference_log` format. Two engines:
+time, PSNR and MATLAB SSIM (border crop 4), PNGs, and the reference's
+`inference_log` format. A restored chunk is scored on the device
+(`ops/metrics.py::chunk_scores`: each frame's exact integer sum of squared
+errors and its SSIM) and read back once; the PSNR is taken from that sum in
+float64 on the host, equal bit for bit to numpy's float64 PSNR of the
+frame. Two engines:
 - direct (the default): each window's frames and its two anchors go through
   `SPEINet.forward`, with per-sample routing; `--self_ensemble` averages
   the 8 flips / transposes of the input (`forward_x8`), `--chop` runs four
@@ -61,7 +65,7 @@ from speinet_tpu_torch.data.indices import gene_seq, gene_seq_nsf
 from speinet_tpu_torch.detector.classifier import LogisticRegression
 from speinet_tpu_torch.detector.train import video_features
 from speinet_tpu_torch.models.speinet import SPEINet, init_weights
-from speinet_tpu_torch.ops.metrics import psnr_uint8_host, ssim_matlab
+from speinet_tpu_torch.ops.metrics import chunk_scores, psnr_from_sse
 from speinet_tpu_torch.parallel.chop import chop_forward
 from speinet_tpu_torch.parallel.mesh import (active, dp_world, is_main,
                                              maybe_init_distributed, shard_rows)
@@ -247,22 +251,29 @@ class Inference:
     def _score_chunk(self, v, names, out, gt_results, start, t_pre,
                      video_psnr, video_ssim) -> None:
         """Quantize a restored chunk [n, 3, H, W], score each frame against
-        its ground truth, save it, and write the reference's log line."""
+        its ground truth on the device (`chunk_scores`), read the scores
+        back in the chunk's one sync, and write the reference's log line of
+        each frame. The frames are read back only to be saved."""
         imgs_dev = torch.clamp(torch.round(out * (255.0 / self.cfg.rgb_range)),
                                0, 255).to(torch.uint8).permute(0, 2, 3, 1)
-        imgs = imgs_dev.cpu().numpy()
+        gts = torch.from_numpy(np.stack([g() for g in gt_results])).to(self.device)
+        crop = 4
+        scores = chunk_scores(imgs_dev, gts, crop_border=crop)
+        with span("engine.score_wait", len(names)):
+            scores = scores.tolist()
         t_fwd = time.time()
+        save = self.save_image and is_main()
+        if save:
+            imgs = imgs_dev.cpu().numpy()
+            os.makedirs(os.path.join(self.result_path, v), exist_ok=True)
+        count = imgs_dev[0, crop:-crop, crop:-crop].numel()
         nb = len(names)
         for k, filename in enumerate(names):
-            img, gt = imgs[k], gt_results[k]()
-            psnr = psnr_uint8_host(img, gt, crop_border=4)
-            ssim = float(ssim_matlab(torch.from_numpy(np.ascontiguousarray(gt)).to(
-                self.device), imgs_dev[k]))
+            psnr, ssim = psnr_from_sse(scores[k][0], count), scores[k][1]
             video_psnr.append(psnr)
             video_ssim.append(ssim)
-            if self.save_image and is_main():
-                os.makedirs(os.path.join(self.result_path, v), exist_ok=True)
-                imwrite(os.path.join(self.result_path, v, f"{filename}.png"), img)
+            if save:
+                imwrite(os.path.join(self.result_path, v, f"{filename}.png"), imgs[k])
             t_post = time.time()
             self.logger.write_log(
                 f"> {v}-{filename} PSNR={psnr:.5}, SSIM={ssim:.4} "

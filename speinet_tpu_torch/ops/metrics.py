@@ -5,7 +5,11 @@
   float image into HWC uint8 (util/utils.py:68-78).
 - `psnr_uint8`: PSNR on [0, 255] images after a 4-pixel border crop
   (inference_SPEINet.py:484-500), in float64 on the tensors' device;
-  `psnr_uint8_host` the same in numpy, as the inference logs take it.
+  `psnr_uint8_host` the same in numpy, as the inference logs take it;
+  `psnr_from_sse` the expression both host paths end in.
+- `chunk_scores`: the inference engine's scores of a restored chunk on its
+  device, an exact integer sum of squared errors and the SSIM per frame,
+  for one readback a chunk.
 - `ssim_matlab`: MATLAB-equivalent SSIM, 11x11 Gaussian (sigma 1.5), valid
   region, C1/C2 at the 255 range, the map of all channels averaged
   (inference_SPEINet.py:502-543). Runs on the tensors' device.
@@ -45,15 +49,39 @@ def psnr_uint8(img1: torch.Tensor, img2: torch.Tensor,
                        20.0 * torch.log10(255.0 / torch.sqrt(mse)))
 
 
+def psnr_from_sse(sse: float, count: int) -> float:
+    """PSNR of [0, 255] images from their sum of squared errors over
+    `count` values: the mean in float64 on the host (divided by the count,
+    as numpy's mean does), inf where it is 0."""
+    mse = np.float64(sse) / count
+    if mse == 0:
+        return float("inf")
+    return float(20.0 * np.log10(255.0 / np.sqrt(mse)))
+
+
 def psnr_uint8_host(img1: np.ndarray, img2: np.ndarray,
                     crop_border: int = 4) -> float:
     """Bit-exact float64 host PSNR for the inference logs."""
     a = img1[crop_border:-crop_border, crop_border:-crop_border].astype(np.float64)
     b = img2[crop_border:-crop_border, crop_border:-crop_border].astype(np.float64)
-    mse = np.mean((a - b) ** 2)
-    if mse == 0:
-        return float("inf")
-    return float(20.0 * np.log10(255.0 / np.sqrt(mse)))
+    return psnr_from_sse(np.sum((a - b) ** 2), a.size)
+
+
+def chunk_scores(imgs: torch.Tensor, gts: torch.Tensor,
+                 crop_border: int = 4) -> torch.Tensor:
+    """Scores of n [H, W, 3] uint8 frames against their uint8 ground truths,
+    both [n, H, W, 3] on one device: [n, 2] float64 on that device. Column
+    0 is each frame's sum of squared errors over the border-cropped frame,
+    int32 differences summed in int64; below 2**53 (a 720p frame reaches
+    1.8e11) it is exact in float64, where numpy's float64 sum of the same
+    squares is exact too, so `psnr_from_sse` of it is `psnr_uint8_host`'s
+    PSNR bit for bit. Column 1 is `ssim_matlab(gt, img)`, one frame at a
+    time: a batched call would reorder its float32 sums."""
+    c = crop_border
+    d = imgs[:, c:-c, c:-c].int() - gts[:, c:-c, c:-c].int()
+    sse = d.square_().sum(dim=(1, 2, 3), dtype=torch.int64)
+    ssim = torch.stack([ssim_matlab(g, i, crop_border) for g, i in zip(gts, imgs)])
+    return torch.stack([sse.double(), ssim.double()], dim=1)
 
 
 def _gaussian_window(ksize: int = 11, sigma: float = 1.5) -> np.ndarray:

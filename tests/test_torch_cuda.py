@@ -645,3 +645,59 @@ def test_world1_nccl_group_matches_no_group(gen, tmp_path):
         tol = (2.0 ** -7 if k in ("y", "x_grad") else 1e-4) * max(
             w.abs().max().item(), 1e-6)
         assert (got[k] - w).abs().max().item() <= tol, k
+
+
+def test_chunk_scores_on_the_card(gen, tmp_path):
+    """A 720p chunk scored on the card (`ops/metrics.py::chunk_scores`): each
+    PSNR from its sum of squared errors equals `psnr_uint8_host` of the
+    frames read back, bit for bit; each SSIM equals the per-frame
+    `ssim_matlab` the engine took before (the ground truth uploaded alone,
+    the frame a view of the quantized chunk); and the engine's scoring of a
+    chunk waits once, in one `engine.score_wait` span over its frames."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from speinet_tpu_torch.infer import Inference
+    from speinet_tpu_torch.ops.metrics import (chunk_scores, psnr_from_sse,
+                                               psnr_uint8_host, ssim_matlab)
+    from speinet_tpu_torch.utils import spans
+
+    def quantize(x):
+        return torch.clamp(torch.round(x * 255.0), 0, 255).to(torch.uint8).permute(0, 2, 3, 1)
+
+    out = torch.rand((3, 3, 720, 1280), generator=gen, device="cuda")
+    out[2] = 0.0
+    near = out + 0.02 * torch.randn(out.shape, generator=gen, device="cuda")
+    near[1], near[2] = out[1], 1.0
+    imgs_dev = quantize(out)
+    # ground truths contiguous, as the engine stacks them: SSIM's float32
+    # sums follow its operands' layout
+    imgs, gts = imgs_dev.cpu().numpy(), np.ascontiguousarray(quantize(near).cpu().numpy())
+    scores = chunk_scores(imgs_dev, torch.from_numpy(gts).cuda()).tolist()
+    count = 712 * 1272 * 3
+    for k in range(3):
+        assert psnr_from_sse(scores[k][0], count) == psnr_uint8_host(imgs[k], gts[k])
+        gt_alone = torch.from_numpy(np.ascontiguousarray(gts[k])).to("cuda")
+        assert scores[k][1] == float(ssim_matlab(gt_alone, imgs_dev[k]))
+    assert psnr_from_sse(scores[1][0], count) == float("inf")
+    assert scores[2][0] == count * 255 ** 2
+
+    inf = Inference.__new__(Inference)
+    inf.cfg, inf.device = SimpleNamespace(rgb_range=1.0), torch.device("cuda", 0)
+    inf.save_image, inf.result_path = False, str(tmp_path)
+    lines = []
+    inf.logger = SimpleNamespace(write_log=lines.append)
+    psnr, ssim = [], []
+    spans.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            for c in range(2):
+                inf._score_chunk("v", [f"{c}{k:07d}" for k in range(3)], out,
+                                 [lambda g=g: g for g in gts], 0.0, 0.0, psnr, ssim)
+        waits = [(s.name, s.n) for s in spans.recorded() if s.name == "engine.score_wait"]
+    finally:
+        spans.reset()
+    assert waits == [("engine.score_wait", 3)] * 2
+    assert psnr == [psnr_uint8_host(imgs[k], gts[k]) for k in range(3)] * 2
+    assert ssim == [scores[k][1] for k in range(3)] * 2 and len(lines) == 6

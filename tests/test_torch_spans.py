@@ -156,9 +156,10 @@ def test_engine_records_its_spans(tmp_path, cached):
     kept = recorded()
     n_of = lambda name: sum(s.n for s in kept if s.name == name)
     names = {s.name for s in kept}
-    engine = {"engine.feed_wait", "engine.upload", "engine.score"}
+    engine = {"engine.feed_wait", "engine.upload", "engine.score", "engine.score_wait"}
     restore = {"restore.fusion", "restore.transfer", "restore.decode"}
-    assert n_of("engine.score") == len(psnr) == 6
+    assert n_of("engine.score") == n_of("engine.score_wait") == len(psnr) == 6
+    assert sum(s.name == "engine.score_wait" for s in kept) == 3   # one wait a chunk
     for name in restore:
         assert n_of(name) == 6, name                    # windows restored
     assert all(s.main_thread and s.device_ms is None for s in kept)
