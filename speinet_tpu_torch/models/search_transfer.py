@@ -34,6 +34,7 @@ from speinet_tpu_torch.kernels.corr import scaled_reference
 from speinet_tpu_torch.models.blocks import conv1x1
 from speinet_tpu_torch.ops.patch_ops import gather_fold3_nhwc, unfold
 from speinet_tpu_torch.ops.resize import bicubic_upsample_nhwc
+from speinet_tpu_torch.utils.spans import span
 
 
 def patch_inv_norms(x_nhwc: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -137,31 +138,32 @@ def transfer(self_transfer: SelfTransfer, f_fusion: torch.Tensor,
         if has_sharp is None or has_sharp.shape != (b,):
             raise ValueError("routing 'mixed' takes has_sharp, a [B] bool tensor")
         has_sharp = has_sharp.to(device=f_fusion.device, dtype=torch.bool)
-    if not corr_raw:
-        lr_n, ref_n = normalized_reference(f_fusion, sharp_lv3, routing, has_sharp)
-        s, idx = correlation_argmax(lr_n.to(dtype).contiguous(),
-                                    ref_n.to(dtype).contiguous())
-    else:
-        inv_lr = patch_inv_norms(f_fusion)
-        if corr_banded and routing != "mixed":
-            if routing == "sharp":
-                ref_map, inv_ref = sharp_lv3, patch_inv_norms(sharp_lv3)
-            else:
-                # x.transpose(2,3).flip(2) in map space; the patch norms follow
-                ref_map = torch.flip(f_fusion.transpose(1, 2), dims=(1,))
-                inv_ref = self_inv_norms(inv_lr, hh, ww)
-            s, idx = banded_corr_argmax(f_fusion.to(dtype).contiguous(),
-                                        ref_map.to(dtype).contiguous(),
-                                        inv_ref.contiguous())
+    with span("restore.search", b, device=True):
+        if not corr_raw:
+            lr_n, ref_n = normalized_reference(f_fusion, sharp_lv3, routing, has_sharp)
+            s, idx = correlation_argmax(lr_n.to(dtype).contiguous(),
+                                        ref_n.to(dtype).contiguous())
         else:
-            lr_u, ref_u, inv_ref = unfold_reference(f_fusion, sharp_lv3, routing,
-                                                    has_sharp, inv_lr)
-            lr_u, ref_u = lr_u.to(dtype).contiguous(), ref_u.to(dtype).contiguous()
-            if corr_scaled:
-                s, idx = correlation_argmax_lds(lr_u, ref_u, inv_ref.contiguous())
+            inv_lr = patch_inv_norms(f_fusion)
+            if corr_banded and routing != "mixed":
+                if routing == "sharp":
+                    ref_map, inv_ref = sharp_lv3, patch_inv_norms(sharp_lv3)
+                else:
+                    # x.transpose(2,3).flip(2) in map space; the patch norms follow
+                    ref_map = torch.flip(f_fusion.transpose(1, 2), dims=(1,))
+                    inv_ref = self_inv_norms(inv_lr, hh, ww)
+                s, idx = banded_corr_argmax(f_fusion.to(dtype).contiguous(),
+                                            ref_map.to(dtype).contiguous(),
+                                            inv_ref.contiguous())
             else:
-                s, idx = correlation_argmax_ld(lr_u, scaled_reference(ref_u, inv_ref))
-        s = s * inv_lr
+                lr_u, ref_u, inv_ref = unfold_reference(f_fusion, sharp_lv3, routing,
+                                                        has_sharp, inv_lr)
+                lr_u, ref_u = lr_u.to(dtype).contiguous(), ref_u.to(dtype).contiguous()
+                if corr_scaled:
+                    s, idx = correlation_argmax_lds(lr_u, ref_u, inv_ref.contiguous())
+                else:
+                    s, idx = correlation_argmax_ld(lr_u, scaled_reference(ref_u, inv_ref))
+            s = s * inv_lr
     weight_s = s.reshape(b, hh, ww, 1)
     if routing != "mixed":
         return (weight_s,) + transfer_tail(self_transfer, f_fusion, sharp_lv1,

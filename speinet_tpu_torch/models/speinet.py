@@ -273,15 +273,16 @@ class SPEINet(nn.Module):
         kernel = box_kernel(5, device=x.device)
         rl = lambda t, n: richardson_lucy(t.permute(0, 3, 1, 2).float(), kernel, n,
                                           0.01, box_size=5).permute(0, 2, 3, 1).to(dt)
-        # legs in the JAX order: sharp, mid, RL5(mid), then (n, RL1(n)) for
-        # each neighbour, whose RL runs as one call
-        legs = [sharp, mid, rl(mid, 5)]
-        if neighbors:
-            deb_nb = rl(torch.cat(neighbors, dim=0), 1)
-            for k, nb in enumerate(neighbors):
-                legs += [nb, deb_nb[k * b:(k + 1) * b]]
-        lv1, lv2, lv3 = self.recons_net.encode_pyramid(
-            torch.cat(legs, dim=0).contiguous(), dt, train)
+        with span("model.legs", device=True):
+            # legs in the JAX order: sharp, mid, RL5(mid), then (n, RL1(n))
+            # for each neighbour, whose RL runs as one call
+            legs = [sharp, mid, rl(mid, 5)]
+            if neighbors:
+                deb_nb = rl(torch.cat(neighbors, dim=0), 1)
+                for k, nb in enumerate(neighbors):
+                    legs += [nb, deb_nb[k * b:(k + 1) * b]]
+            lv1, lv2, lv3 = self.recons_net.encode_pyramid(
+                torch.cat(legs, dim=0).contiguous(), dt, train)
         leg = lambda k: lv3[k * b:(k + 1) * b]
         f_mid = leg(1) + leg(2)
         neighbor_feats = [leg(3 + 2 * k) + leg(4 + 2 * k)

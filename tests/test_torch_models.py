@@ -240,3 +240,66 @@ def test_speinet_forward(shared, h, w):
     got = port(torch.from_numpy(x))
     assert got.shape == (3, 3, h, w)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+_TRAIN_FORWARD = {}
+
+
+def _train_forward(dtype):
+    """The JAX package's SPEINet training forward (batch statistics, no
+    DropPath) in `dtype`, jitted once a dtype."""
+    if dtype not in _TRAIN_FORWARD:
+        jm = JSPEINet(**TINY, drop_path_rate=0.0, dtype=dtype)
+        _TRAIN_FORWARD[dtype] = jax.jit(lambda v, x: jm.apply(
+            v, x, train=True, mutable=["batch_stats"],
+            rngs={"droppath": jax.random.PRNGKey(0)})[0])
+    return _TRAIN_FORWARD[dtype]
+
+
+@pytest.mark.parametrize("gain", [1.0, 3.0], ids=["as_drawn", "exploding"])
+def test_bf16_departure_at_an_exploding_init_is_bf16s(shared, gain):
+    """The training forward at a synthetic init whose decoder explodes (its
+    gates' BatchNorm scales times 3: every ResBlock's gated product grows
+    its input, the output reaches ~20 where it is ~0.6 as drawn). In
+    float32 the port equals the JAX package; in bf16 the port and the JAX
+    package both depart from their float32 output by more than a tenth,
+    and by ~1.5% as drawn. The float32 port on the input rounded to bf16,
+    every operation after that rounding float32, departs by more than a
+    twentieth there (under 1% as drawn): the exploding init amplifies any
+    rounding, the input's alone included, so no bf16 computation can
+    follow the float32 one there, in either package. The init is made
+    here, not drawn from a seed, and is not the benchmark's seed
+    2147486003's own explosion (ROADMAP, F7), which the benchmark's
+    reference reads in the same way on the card."""
+    variables, _ = shared
+    port = init_weights(SPEINet(**TINY, drop_path_rate=0.0), seed=3)
+    for name, mod in port.named_modules():
+        if name.startswith(("recons_net.decoder", "recons_net.outBlock")) \
+                and name.endswith(".conv.bn"):
+            mod.weight.mul_(gain)
+    params, bstats = convert_state_dict(port.state_dict(), _np_tree(variables),
+                                        depths=TINY["depths"], n_resblock=3)
+    x = np.random.default_rng(0).random((3, 5, 3, 40, 40)).astype(np.float32)
+    out = {}
+    for dt in (jnp.float32, jnp.bfloat16):
+        y = _train_forward(dt)({"params": params, "batch_stats": bstats}, jnp.asarray(x))
+        out["jax", dt] = torch.from_numpy(np.asarray(y.astype(jnp.float32)))
+    for dt, jdt in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+        m = SPEINet(**TINY, drop_path_rate=0.0, dtype=dt)
+        m.load_state_dict(port.state_dict(), strict=True)
+        out["port", jdt] = m(torch.from_numpy(x), train=True).float()
+    gap = lambda a, b: float(((a - b).flatten(1).norm(dim=1)
+                              / b.flatten(1).norm(dim=1)).max())
+    f32 = out["port", jnp.float32]
+    assert gap(f32, out["jax", jnp.float32]) < 1e-4
+    port_bf, jax_bf = (gap(out[k, jnp.bfloat16], out[k, jnp.float32]) for k in ("port", "jax"))
+    m = SPEINet(**TINY, drop_path_rate=0.0)
+    m.load_state_dict(port.state_dict(), strict=True)
+    rounded_in = gap(m(torch.from_numpy(x).bfloat16().float(), train=True), f32)
+    if gain == 1.0:
+        assert f32.abs().max() < 2 and port_bf < 0.03 and jax_bf < 0.03
+        assert rounded_in < 0.01
+    else:
+        assert f32.abs().max() > 20 and port_bf > 0.1 and jax_bf > 0.1
+        assert 0.5 < port_bf / jax_bf < 2
+        assert rounded_in > 0.05

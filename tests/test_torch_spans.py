@@ -157,7 +157,7 @@ def test_engine_records_its_spans(tmp_path, cached):
     n_of = lambda name: sum(s.n for s in kept if s.name == name)
     names = {s.name for s in kept}
     engine = {"engine.feed_wait", "engine.upload", "engine.score", "engine.score_wait"}
-    restore = {"restore.fusion", "restore.transfer", "restore.decode"}
+    restore = {"restore.fusion", "restore.transfer", "restore.search", "restore.decode"}
     assert n_of("engine.score") == n_of("engine.score_wait") == len(psnr) == 6
     assert sum(s.name == "engine.score_wait" for s in kept) == 3   # one wait a chunk
     for name in restore:
@@ -170,8 +170,8 @@ def test_engine_records_its_spans(tmp_path, cached):
         assert set(inf.stage_seconds) == {"legs", "anchor", "restore"}
         assert all(v > 0 for v in inf.stage_seconds.values())
     else:
-        assert names == engine | restore | {"model.forward"}
-        assert n_of("model.forward") == 3                # one call a chunk
+        assert names == engine | restore | {"model.forward", "model.legs"}
+        assert n_of("model.forward") == n_of("model.legs") == 3   # one call a chunk
         assert not any(inf.stage_seconds.values())
 
 
@@ -209,3 +209,24 @@ def test_trainer_epoch_records_the_step_and_loader_spans(tmp_path):
                       "train.optimizer": 2, "loader.batch": 3, "loader.wait": 3}
     assert {s.name for s in recorded() if not s.main_thread} == {"loader.batch"}
 
+
+
+@pytest.mark.parametrize("name,n", [("model.legs", 1), ("restore.search", 3)])
+def test_speinet_training_forward_records_its_spans(name, n):
+    """A tiny SPEINet's training forward over a 'mixed' batch of three
+    samples, one of them self-routed (its sharp frame all zero): the legs'
+    span once, n 1; the search's once, n 3, since 'mixed' searches every
+    sample, each against its own routing's reference. Nothing is kept
+    without a profiler."""
+    from speinet_tpu_torch.models.speinet import SPEINet, init_weights
+
+    model = init_weights(SPEINet(n_feat=8, embed_dim=32, depths=(2,), num_heads=(4,)),
+                         seed=0)
+    x = torch.rand(3, 5, 3, 40, 40, generator=torch.Generator().manual_seed(0))
+    x[2, 3] = 0
+    model(x, train=True)
+    assert recorded() == []
+    with _cpu_profile():
+        model(x, train=True)
+    kept = [s for s in recorded() if s.name == name]
+    assert [(s.n, s.main_thread) for s in kept] == [(n, True)]
