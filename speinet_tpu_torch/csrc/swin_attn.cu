@@ -19,16 +19,17 @@
 // the projections take 8 C^2 and the scores 4 N C FLOP per token, ~6.3e10
 // FLOP (0.064 ms at 989 TFLOP/s) against 177 MB of x, y and output
 // (0.053 ms). Design: K2's pipeline up to and including the projection,
-// from swin_wgmma.cuh (its note has the stages): y and x windows by TMA
-// into the LN tile, LN1 in place, Q on wgmma, K|V two heads at a time on
+// from swin_wgmma.cuh (its note has the stages), one window group a CTA:
+// the loader warp brings y's windows into sQ and x's into sA by TMA and
+// computes the masks, LN1 in place, Q on wgmma, K|V two heads at a time on
 // wgmma, the attention on mma.sync, the projection on wgmma, the weights
 // through a TMA ring that a producer warp keeps ahead. The epilogue is
-// K8's own: + bp, rounded to bf16 into the LN tile (dead since the last
-// K|V GEMM), stored a window box at a time by TMA. No residual, so x is
-// loaded once. Shared memory at C = 256: LN tile 64 KB, Q / O 64 KB, a
-// 3-stage ring of 16 KB slabs, K|V of two heads 34 KB, masks and bias
-// 5.4 KB (~221 KB, one CTA per SM); registers: the projection's 128 f32
-// accumulators a consumer thread (232 after setmaxnreg).
+// K8's own: + bp, rounded to bf16 into sA (dead since the last K|V GEMM),
+// stored a window box at a time by the loader. Shared memory at C = 256:
+// the window kernels' plan (swin_wgmma.cuh) without the MLP's parameters,
+// ~221 KB with a 3-stage ring, one CTA per SM; registers: the
+// projection's 128 f32 accumulators a consumer thread (232 after
+// setmaxnreg).
 
 #include "swin_wgmma.cuh"
 
@@ -46,32 +47,42 @@ __global__ void __launch_bounds__(THREADS, 1) swin_attn_kernel(
     const __grid_constant__ Maps maps, const WinArgs a) {
   constexpr int NP = Tile<CP>::NP, NH = Tile<CP>::NH;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const WinSmem s = win_smem(smem, a);
   const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   const int win0 = blockIdx.x * G;
 
-  // ring barriers, then y's and x's window barriers
-  if (threadIdx.x == 0) init_barriers(s.bar_s, a.stages, 2);
+  if (threadIdx.x == 0) init_window_barriers(s, a.stages);
   __syncthreads();
 
   if (warp >= 8) {
-    // ---------------- producer: Q, K | V and proj slabs in consumption order
     producer_regs();
-    if (warp != 8 || (threadIdx.x & 31) != 0) return;
-    Producer pr{s.ring_s, s.bar_s, a.stages, 0, 0};
-    produce_attn<CP>(pr, &maps.q, &maps.kv, &maps.p, a.heads, a.C);
+    if (warp == 8 && lane == 0) {
+      // ---------------- producer: Q, K | V and proj slabs in consumption order
+      Producer pr{s.ring_s, s.bar_s, a.stages, 0, 0};
+      produce_attn<CP>(pr, &maps.q, &maps.kv, &maps.p, a.heads, a.C);
+    } else if (warp == 9) {
+      // ---------------- loader: y and x, the masks, then the output
+      if (lane == 0) {
+        load_windows<CP>(a, &maps.y, s.sQ_s(), ybar(s), win0);
+        load_windows<CP>(a, &maps.x, s.sA_s(), xbar(s), win0);
+      }
+      masks_ready(a, s, win0);
+      if (lane == 0) store_group<CP>(a, s, &maps.o, win0, 0);
+    }
     return;
   }
 
   // ---------------- consumers
   consumer_regs();
-  Ring ring{s.ring_s, s.bar_s, a.stages, 0, 0};
+  Ring ring{s.ring_s, s.bar_s, a.stages, 0, 0, 0};
+  stage_params<CP>(a, s, false);
+  bar_sync(1, 256);
   float res[NH][NP / 2];
-  window_attention<CP>(a, s, &maps.x, &maps.y, ring, win0, false, res);
-  // ---- out = bf16(O Wp^T + bp), the windows by TMA
-  store_windows<CP>(a, s, &maps.o, res, a.bp, win0);
+  window_attention<CP>(a, s, ring, win0, 0, false, res);
+  // ---- out = bf16(O Wp^T + bp), stored by the loader
+  store_windows<CP>(a, s, res, s.bp());
 }
 
 template <int CP>
@@ -83,7 +94,7 @@ cudaError_t launch(WinArgs a, const void* wq, const void* wkv, const void* wp,
       || !make_map(&maps.p, wp, a.C, a.C, NP) || !make_img_map(&maps.x, a.x, a)
       || !make_img_map(&maps.y, a.y, a) || !make_img_map(&maps.o, a.out, a))
     return cudaErrorInvalidValue;
-  const int smem = window_layout(a, CP, false);
+  const int smem = window_layout(a, false);
   if (smem == 0) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       swin_attn_kernel<CP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

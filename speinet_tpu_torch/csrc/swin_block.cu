@@ -14,41 +14,62 @@
 // (speinet_tpu/models/swinir.py:61-77) and the rolled pad rule (:356-365).
 //
 // Bound on the H100: operations (~62 GFLOP per [180, 320, 256] stream image
-// against ~88 MB, 0.063 ms vs 0.026 ms). Design: a CTA takes 5 consecutive
-// windows = 125 token rows (padded to 128) of one stream; warps 0-7 are two
-// consumer warpgroups, each owning 64 token rows, warps 8-11 the producer
-// warpgroup (one thread issues the copies), which hands its registers to
-// the consumers (setmaxnreg: 40 and 232 a thread).
-// - x and y arrive by TMA, a window's 64 channels a box, into the tile the
-//   LayerNorm then rewrites in place; x's windows come twice (for LN1 and
-//   for the residual), each time as soon as the tile's last reader is done,
-//   so the copies overlap the Q epilogue and the last heads' attention.
-// - Every projection (Q; K|V of two heads at a time; proj; fc1 per 128-wide
-//   hidden chunk; fc2) is a wgmma (m64nNk16, bf16, f32 accumulators in registers) whose A
-//   (LN'd rows, attention output, GELU'd hidden chunk) lies in shared memory
-//   in the canonical 128-byte-swizzled K-major layout, and whose weights
-//   (torch Linear layout, K-major) stream through a ring of 16 KB shared
-//   slabs, 64 deep in K, loaded by TMA under full / empty mbarriers: the
-//   producer runs ahead through the block's fixed slab order, so weight
-//   copies overlap the MMAs.
-// - The f32 residual stays in registers: the proj accumulators (m64 x C)
-//   get x (from the tile) + bp added in place, LN2 reduces each row over the four lanes of
-//   a quad, LN2's bf16 rows become fc1's A, each fc1 chunk goes through
-//   bias + GELU in registers to a bf16 shared tile, fc2 accumulates onto
-//   the residual registers, and the output is + b2 rounded to bf16 once
-//   into the tile and stored a window box at a time by TMA.
+// against ~88 MB, 0.063 ms vs 0.026 ms). A second floor: every window group
+// streams all of the block's bf16 weights from L2 (1.05 MB at C 256, hidden
+// 512), 1.93 GB over the 1,844 groups of a video chunk's launch ([4, 180,
+// 320, 256]), 0.28-0.35 ms at an L2 rate of 5.5-7 TB/s against 0.250 ms of
+// operations: sharing slabs between the CTAs of a cluster (TMA multicast)
+// is what would lift it.
+//
+// Schedule. Persistent CTAs, one an SM, each walking the groups of five
+// consecutive windows (125 token rows, padded to 128) with a static stride.
+// Warps 0-7 are two consumer warpgroups, each owning 64 token rows; warp 8's
+// first thread streams the weight slabs of every group, in consumption
+// order, through a 3-stage ring (at C 256); warp 9 loads the images and
+// computes the masks, each copy as soon as the tile it fills is free:
+// - y (the Q stream) lives in sQ, x (the K / V stream) in sA. The next
+//   group's y comes once this group's fc2 GEMMs have read the hidden
+//   chunks in sQ (yreq), its masks (two sets, by group parity) meanwhile;
+//   the next group's x once this group's output has left sA, so it arrives
+//   under the next LN1(y) and Q GEMM; x comes back for the residual once
+//   the last K | V GEMM has read xn (xreq), under the last heads'
+//   attention; the output leaves by TMA store when both warpgroups have
+//   written it (oreq).
+// - Every projection (Q; K|V of two heads at a time; proj; fc1 per 64-wide
+//   hidden chunk; fc2) is a wgmma (m64nNk16, bf16, f32 accumulators in
+//   registers) whose A (LN'd rows, attention output, GELU'd hidden chunk)
+//   lies in shared memory in the canonical 128-byte-swizzled K-major layout;
+//   each slab is one commit group, released once the next is in flight.
+// - The f32 residual stays in registers: the proj accumulators get x (read
+//   from the tile, swizzled in place first) + bp added, with LN2's row sums
+//   taken in the same pass, LN2's bf16 rows become fc1's A, each fc1 chunk
+//   goes through bias + GELU to a bf16 shared tile, fc2 accumulates onto
+//   the residual registers, and the output is + b2 rounded to bf16 once.
+//   The MLP is a software pipeline: chunk c's GELU runs on the warps while
+//   the tensor cores accumulate chunk c - 1's fc2 onto the residual, so
+//   the overlap costs no register beyond the residual's.
 // - The attention runs per (window, head, 16-query half) in one warp on
-//   mma.sync m16n8k16: the window's 25 tokens padded to 32, S = q k^T
-//   (1 x 4 tiles), bias and mask added and the f32 softmax taken on the
-//   accumulator fragments (quad shuffles), the bf16 probabilities reused in
-//   registers as the A fragments of O = P v, O written over Q. (Per token on CUDA
-//   cores the serial dot products are latency-bound: a CTA has only eight
-//   consumer warps per SM to hide them.)
+//   mma.sync m16n8k16 (25 tokens padded to 32; f32 softmax on the
+//   accumulator fragments; the bf16 probabilities reused in registers as
+//   the A fragments of O = P v, O written over Q), three such tasks a warp
+//   interleaved.
+// Shared memory at C 256: sA and sQ 64 KB each, K | V of two heads 34 KB
+// (the epilogues' 32 KB scratch and LN1's row statistics while K | V is
+// dead), two mask sets 1 KB, two heads' relative-position bias 4.9 KB, the
+// staged parameters 9 KB, the ring 48 KB, barriers: 226 KB and alignment.
+// Measured (PERF.md): a group took ~112 us with one CTA per group and 189 KB
+// of code fetched from L2 for every group; the code is now under 128 KB and
+// a group ~73 us, of which ~18 us are tensor work at the card's peak. What
+// still runs beside no MMA: the LayerNorms, the Q / K|V epilogues, the
+// window attention and the residual (K|V's accumulators beside the
+// attention's state, or fc1's beside the residual and the GELU, pass the
+// 232 registers, and ptxas then serialises every MMA of the kernel); and
+// the 3-stage ring holds less than one GEMM.
 // C below 256 runs at CP = 64, 128 or 256 columns: TMA fills the weights'
 // missing rows and columns with zeros and the padded columns stay zero.
-// Sharing weight slabs between CTAs (clusters, TMA multicast) is later work.
-// The stages (ring, GEMM, LayerNorm, window attention, MLP chunks, window
-// loads and stores) are swin_wgmma.cuh's, which K8 and K9 compose too.
+// The stages (ring, GEMM, LayerNorm, window attention, MLP chunks, epilogue
+// scratch, window loads and stores) are swin_wgmma.cuh's, which K8 and K9
+// compose too.
 
 #include "swin_wgmma.cuh"
 
@@ -66,27 +87,67 @@ __global__ void __launch_bounds__(THREADS, 1) swin_block_kernel(
     const __grid_constant__ Maps maps, const WinArgs a) {
   constexpr int NP = Tile<CP>::NP, NH = Tile<CP>::NH;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const WinSmem s = win_smem(smem, a);
+  // 1024-aligned, by pointer arithmetic on the shared array so that every
+  // address derived from it stays a shared-memory one
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const WinSmem s0 = win_smem(smem, a);
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int win0 = blockIdx.x * G;
   const int C = a.C;
+  const int groups = (a.total_win + G - 1) / G;
 
-  // ring barriers, then y's and x's window barriers (x comes twice: LN1,
-  // then the residual)
-  if (tid == 0) init_barriers(s.bar_s, a.stages, 2);
+  if (tid == 0) init_window_barriers(s0, a.stages);
   __syncthreads();
 
   if (warp >= 8) {
-    // ---------------- producer: the block's slabs in consumption order
     producer_regs();
-    if (warp != 8 || lane != 0) return;
-    Producer pr{s.ring_s, s.bar_s, a.stages, 0, 0};
-    produce_attn<CP>(pr, &maps.q, &maps.kv, &maps.p, a.heads, C);
-    produce_mlp<CP>(pr, &maps.w1, &maps.w2, (a.hidden + HC - 1) / HC);
+    if (warp == 8 && lane == 0) {
+      // ---------------- producer: every group's slabs in consumption order
+      Producer pr{s0.ring_s, s0.bar_s, a.stages, 0, 0};
+#pragma unroll 1
+      for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+        produce_attn<CP>(pr, &maps.q, &maps.kv, &maps.p, a.heads, C);
+        produce_mlp<CP>(pr, &maps.w1, &maps.w2, a.hidden / HC);
+      }
+    } else if (warp == 9) {
+      // ---------------- loader: each group's masks and image copies, in
+      // the order the consumers free their tiles
+      int it = 0;
+#pragma unroll 1
+      for (int grp = blockIdx.x; grp < groups; grp += gridDim.x, ++it) {
+        const WinSmem s = win_smem(smem, a, it & 1);
+        const int win0 = grp * G;
+        const int next = grp + (int)gridDim.x;
+        if (it == 0) {
+          if (lane == 0) {
+            load_windows<CP>(a, &maps.y, s.sQ_s(), ybar(s), win0);
+            load_windows<CP>(a, &maps.x, s.sA_s(), xbar(s), win0);
+          }
+          masks_ready(a, s, win0);
+        }
+        if (lane == 0) {
+          mbar_wait(xreq(s), it & 1);   // the residual's x
+          load_windows<CP>(a, &maps.x, s.sA_s(), xbar(s), win0);
+        }
+        if (next < groups) {
+          // the next group's masks now, its y once this group's hidden
+          // chunks in sQ are dead
+          const WinSmem sn = win_smem(smem, a, (it + 1) & 1);
+          masks_ready(a, sn, next * G);
+          if (lane == 0) {
+            mbar_wait(yreq(s), it & 1);
+            load_windows<CP>(a, &maps.y, sn.sQ_s(), ybar(sn), next * G);
+          }
+        }
+        if (lane == 0) {
+          store_group<CP>(a, s, &maps.o, win0, it & 1);
+          // sA is free: the next group's x comes in under its LN1(y) and Q
+          if (next < groups) load_windows<CP>(a, &maps.x, s.sA_s(), xbar(s), next * G);
+        }
+        __syncwarp();
+      }
+    }
     return;
   }
 
@@ -94,80 +155,95 @@ __global__ void __launch_bounds__(THREADS, 1) swin_block_kernel(
   consumer_regs();
   const int wg = warp >> 2;
   const int q4 = lane & 3;
-  const int r0 = wg * 64 + (warp & 3) * 16 + (lane >> 2);   // accumulator rows r0, r0 + 8
-  Ring ring{s.ring_s, s.bar_s, a.stages, 0, 0};
+  const int row0 = wg * 64 + (warp & 3) * 16;   // this warp's 16 token rows
+  const int r0 = row0 + (lane >> 2);            // accumulator rows r0, r0 + 8
+  Ring ring{s0.ring_s, s0.bar_s, a.stages, 0, 0, 0};
+  stage_params<CP>(a, s0, true);
+  bar_sync(1, 256);
 
-  // ---- x2 = x + (O Wp^T + bp): the residual, in registers from here on
-  float res[NH][NP / 2];
-  window_attention<CP>(a, s, &maps.x, &maps.y, ring, win0, true, res);
-  long long off[2];
-  off[0] = pix_off(a, r0, win0);
-  off[1] = pix_off(a, r0 + 8, win0);
-  mbar_wait(xbar(s), 1);
-#pragma unroll
-  for (int p = 0; p < NH; ++p)
-#pragma unroll
-    for (int j = 0; j < NP / 8; ++j) {
-      const int col = p * NP + 8 * j + 2 * q4;
-      if (col < C) {
-        const float2 bpv = ldg2(a.bp + col);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float2 xv = make_float2(0.0f, 0.0f);
-          if (off[h] >= 0)
-            xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                s.sA + (col >> 6) * BLK + (r0 + 8 * h) * 128 + (col & 63) * 2));
-          res[p][4 * j + 2 * h] = xv.x + (res[p][4 * j + 2 * h] + bpv.x);
-          res[p][4 * j + 2 * h + 1] = xv.y + (res[p][4 * j + 2 * h + 1] + bpv.y);
-        }
-      }
-    }
-  // ---- LN2(x2) -> sA, over the raw x rows this quad has just read
-  __syncwarp();
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float sm = 0.0f, ss = 0.0f;
-#pragma unroll
-    for (int p = 0; p < NH; ++p)
-#pragma unroll
-      for (int j = 0; j < NP / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float v = res[p][4 * j + 2 * h + e];   // padded columns are 0
-          sm += v;
-          ss += v * v;
-        }
-    sm += __shfl_xor_sync(FULL, sm, 1);
-    sm += __shfl_xor_sync(FULL, sm, 2);
-    ss += __shfl_xor_sync(FULL, ss, 1);
-    ss += __shfl_xor_sync(FULL, ss, 2);
-    const float mu = sm / C;
-    const float rs = rsqrtf(fmaxf(ss / C - mu * mu, 0.0f) + 1e-5f);
-    const bool ok = off[h] >= 0;
-#pragma unroll
-    for (int p = 0; p < NH; ++p)
-#pragma unroll
-      for (int j = 0; j < NP / 8; ++j) {
-        const int col = p * NP + 8 * j + 2 * q4;
-        uint32_t v = 0u;
-        if (ok && col < C) {
-          const float2 w2 = ldg2(a.ln2w + col);
-          const float2 b2 = ldg2(a.ln2b + col);
-          v = pack_bf16x2((res[p][4 * j + 2 * h] - mu) * rs * w2.x + b2.x,
-                          (res[p][4 * j + 2 * h + 1] - mu) * rs * w2.y + b2.y);
-        }
-        *reinterpret_cast<uint32_t*>(s.sA + swz(r0 + 8 * h, col)) = v;
-      }
+  int it = 0;
+#pragma unroll 1
+  for (int grp = blockIdx.x; grp < groups; grp += gridDim.x, ++it) {
+    // the masks alternate between two sets, the loader filling the next
+    const WinSmem s = win_smem(smem, a, it & 1);
+    const int win0 = grp * G;
+
+    // ---- x2 = x + (O Wp^T + bp): the residual, in registers from here on
+    float res[NH][NP / 2];
+    window_attention<CP>(a, s, ring, win0, it & 1, true, res);
+    const int nvalid = min(G, a.total_win - win0) * NT;   // token rows, then padding
+    const bool ok0 = r0 < nvalid, ok1 = r0 + 8 < nvalid;
+    mbar_wait(xbar(s), 1);
+    reswizzle_rows<true>(s.sA(), row0, lane, CP);
+    // LN2's sums over each row, taken in the same pass
+    float sm0 = 0.0f, ss0 = 0.0f, sm1 = 0.0f, ss1 = 0.0f;
+    pairs_via_scratch<NP, NH, true>(
+        res, scratch(s),
+        [&](int p, int j, int h) {   // bp and x, read unconditionally (no branch)
+          const int col = p * NP + 8 * j + 2 * q4;
+          const float2 x = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(s.sA() + swz(r0 + 8 * h, col)));
+          return Pair2{lds2(s.bp() + col),
+                       (h ? ok1 : ok0) ? x : make_float2(0.0f, 0.0f)};
+        },
+        [&](int p, int j, int h, float2 v, Pair2 bx) {
+          const bool live = p * NP + 8 * j + 2 * q4 < C;
+          v.x = live ? bx.b.x + (v.x + bx.a.x) : v.x;
+          v.y = live ? bx.b.y + (v.y + bx.a.y) : v.y;
+          // padded columns are 0
+          if (h) {
+            sm1 += v.x;
+            ss1 += v.x * v.x;
+            sm1 += v.y;
+            ss1 += v.y * v.y;
+          } else {
+            sm0 += v.x;
+            ss0 += v.x * v.x;
+            sm0 += v.y;
+            ss0 += v.y * v.y;
+          }
+          return v;
+        });
+    // ---- LN2(x2) -> sA, over the x values this thread has just read
+    sm0 += __shfl_xor_sync(FULL, sm0, 1);
+    sm0 += __shfl_xor_sync(FULL, sm0, 2);
+    ss0 += __shfl_xor_sync(FULL, ss0, 1);
+    ss0 += __shfl_xor_sync(FULL, ss0, 2);
+    sm1 += __shfl_xor_sync(FULL, sm1, 1);
+    sm1 += __shfl_xor_sync(FULL, sm1, 2);
+    ss1 += __shfl_xor_sync(FULL, ss1, 1);
+    ss1 += __shfl_xor_sync(FULL, ss1, 2);
+    const float mu0 = sm0 / C, mu1 = sm1 / C;
+    const float rs0 = rsqrtf(fmaxf(ss0 / C - mu0 * mu0, 0.0f) + 1e-5f);
+    const float rs1 = rsqrtf(fmaxf(ss1 / C - mu1 * mu1, 0.0f) + 1e-5f);
+    pairs_via_scratch<NP, NH, false>(
+        res, scratch(s),
+        [&](int p, int j, int) {   // LN2's weight and bias
+          const int col = p * NP + 8 * j + 2 * q4;
+          return Pair2{lds2(s.ln2w() + col), lds2(s.ln2b() + col)};
+        },
+        [&](int p, int j, int h, float2 v, Pair2 wb) {
+          const int col = p * NP + 8 * j + 2 * q4;
+          const float mu = h ? mu1 : mu0, rs = h ? rs1 : rs0;
+          const uint32_t o =
+              pack_bf16x2((v.x - mu) * rs * wb.a.x + wb.b.x, (v.y - mu) * rs * wb.a.y + wb.b.y);
+          *reinterpret_cast<uint32_t*>(s.sA() + swz(r0 + 8 * h, col)) =
+              (h ? ok1 : ok0) && col < C ? o : 0u;
+          return v;
+        });
+    fence_proxy_async();
+    bar_sync(2 + wg, 128);
+
+    // ---- MLP, 128 hidden columns at a time: x2 += gelu(LN2 W1^T + b1) W2^T
+    mlp_chunks<CP>(res, s.sA_s(), s.sQ(), scratch(s), ring, s.b1(), a.hidden, false, [] {});
+    // this warpgroup's fc2 GEMMs have read its rows of the hidden chunks in
+    // sQ: the next group's y may come in once the other's have too
+    if ((tid & 127) == 0 && grp + (int)gridDim.x < groups) mbar_arrive(yreq(s));
+
+    // ---- out = x2 + b2, rounded to bf16 once, into sA's rows (this
+    // warpgroup's last fc1 GEMM has read LN2's), for the loader to store
+    store_windows<CP>(a, s, res, s.b2());
   }
-  fence_proxy_async();
-  bar_sync(2 + wg, 128);
-
-  // ---- MLP, 128 hidden columns at a time: x2 += gelu(LN2 W1^T + b1) W2^T
-  mlp_chunks<CP>(res, s.sA_s, s.sQ, ring, a.b1, a.hidden, false, [] {});
-
-  // ---- out = x2 + b2, rounded to bf16 once, into sA's rows (this
-  // warpgroup's last fc1 GEMM has read LN2's), then the windows by TMA
-  store_windows<CP>(a, s, &maps.o, res, a.b2, win0);
 }
 
 template <int CP>
@@ -180,13 +256,19 @@ cudaError_t launch(WinArgs a, const void* wq, const void* wkv, const void* wp,
       || !make_map(&maps.w2, w2, a.hidden, a.C, NP) || !make_img_map(&maps.x, a.x, a)
       || !make_img_map(&maps.y, a.y, a) || !make_img_map(&maps.o, a.out, a))
     return cudaErrorInvalidValue;
-  const int smem = window_layout(a, CP, true);
+  const int smem = window_layout(a, true);
   if (smem == 0) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       swin_block_kernel<CP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  const int blocks = (a.total_win + G - 1) / G;
-  swin_block_kernel<CP><<<blocks, THREADS, smem, stream>>>(maps, a);
+  // persistent CTAs, one an SM, each walking the window groups with a
+  // static stride
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const int groups = (a.total_win + G - 1) / G;
+  swin_block_kernel<CP><<<groups < sms ? groups : sms, THREADS, smem, stream>>>(maps, a);
   return cudaGetLastError();
 }
 

@@ -19,19 +19,23 @@
 //   and storing its own 64 rows, so the two warpgroups meet only at the
 //   weight ring. TMA zero-fills the rows past the last one and clips the
 //   stores there, so the ragged last CTA needs no masking.
-// - LN2 in place on the tile (K2's LayerNorm), fc1 per 128-wide hidden
-//   chunk on wgmma, bias + erf-GELU in registers into one of two bf16
-//   swizzled hidden tiles, fc2 on wgmma into accumulators of its own (the
-//   first chunk overwrites them), weights through the producer's TMA ring.
+// - LN2 in place on the tile (K2's LayerNorm), then K2's MLP pipeline
+//   (swin_wgmma.cuh, mlp_chunks): fc1 per 64-wide hidden chunk on wgmma,
+//   parked in a scratch, bias + erf-GELU into one of two bf16 swizzled
+//   hidden tiles while the tensor cores run the chunk before's fc2, fc2
+//   into accumulators of its own (the first chunk overwrites them),
+//   weights through the producer's TMA ring.
 // - x comes back by TMA into the LN tile once the last fc1 product has
 //   read it (K2's "x twice"), overlapping the last chunk's fc2;
 //   the epilogue adds it to bf16(fc2 + b2) in place in the swizzled tile
 //   (conflict-free) and stores the rows by TMA.
-// Shared memory at C = 256: LN / x tile 64 KB, two hidden tiles 64 KB, a
-// 4-stage ring of 16 KB slabs (~194 KB, one CTA per SM). Registers per
-// consumer thread (232 after setmaxnreg): 128 f32 fc2 accumulators plus
-// 64 of the fc1 chunk. C below 256 runs at CP = 64 or 128 columns, the
-// padded columns zero (TMA fills the weights' missing rows and columns).
+// Shared memory at C = 256: LN / x tile 64 KB, two hidden tiles 32 KB, a
+// 4-stage ring of 16 KB slabs, the GELU's 32 KB scratch, LN2's row
+// statistics and the staged parameters (~200 KB, one CTA per SM).
+// Registers per consumer thread (232 after setmaxnreg): 128 f32 fc2
+// accumulators plus 32 of the fc1 chunk. C below 256 runs at CP = 64 or
+// 128 columns, the padded columns zero (TMA fills the weights' missing
+// rows and columns).
 
 #include "swin_wgmma.cuh"
 
@@ -47,7 +51,7 @@ struct Maps {
 struct MlpArgs {
   const float *ln2w, *ln2b, *b1, *b2;
   long long rows;
-  int C, hidden, stages, off_h, off_ring, off_bar;
+  int C, hidden, stages, off_h, off_ring, off_scr, off_prm, off_bar;
 };
 
 template <int CP>
@@ -55,12 +59,17 @@ __global__ void __launch_bounds__(THREADS, 1) swin_mlp_kernel(
     const __grid_constant__ Maps maps, const MlpArgs a) {
   constexpr int NP = Tile<CP>::NP, NH = Tile<CP>::NH, NKB = Tile<CP>::NKB;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* sA = smem;                  // x, LN2(x), then x again and the output
   const uint32_t sA_s = smem_u32(sA);
   const uint32_t ring_s = smem_u32(smem + a.off_ring);
   const uint32_t bar_s = smem_u32(smem + a.off_bar);
+  // the parameters, staged: LN2's weight and bias, b2 (each padded to CP),
+  // b1 (padded to whole hidden chunks)
+  float* ln2w = reinterpret_cast<float*>(smem + a.off_prm);
+  float* ln2b = ln2w + CP;
+  float* b2 = ln2w + 2 * CP;
+  float* b1 = ln2w + 3 * CP;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -76,7 +85,7 @@ __global__ void __launch_bounds__(THREADS, 1) swin_mlp_kernel(
     producer_regs();
     if (warp != 8 || lane != 0) return;
     Producer pr{ring_s, bar_s, a.stages, 0, 0};
-    produce_mlp<CP>(pr, &maps.w1, &maps.w2, (a.hidden + HC - 1) / HC);
+    produce_mlp<CP>(pr, &maps.w1, &maps.w2, a.hidden / HC);
     return;
   }
 
@@ -86,7 +95,7 @@ __global__ void __launch_bounds__(THREADS, 1) swin_mlp_kernel(
   const int q4 = lane & 3;
   const int r0 = wg * 64 + (warp & 3) * 16 + (lane >> 2);   // accumulator rows r0, r0 + 8
   const int wg_bar = 2 + wg;
-  Ring ring{ring_s, bar_s, a.stages, 0, 0};
+  Ring ring{ring_s, bar_s, a.stages, 0, 0, 0};
   const uint32_t xbar = bar_s + 16 * MAX_STAGES + 8 * wg;
   const uint32_t rows_s = sA_s + wg * 64 * 128;   // this warpgroup's 64 rows
   const int grow = (int)(row0 + wg * 64);         // their first row in x
@@ -102,15 +111,22 @@ __global__ void __launch_bounds__(THREADS, 1) swin_mlp_kernel(
 
   // ---- LN2(x) -> sA
   load_x();
+  stage_vec(ln2w, a.ln2w, C, CP, tid, 256);
+  stage_vec(ln2b, a.ln2b, C, CP, tid, 256);
+  stage_vec(b2, a.b2, C, CP, tid, 256);
+  stage_vec(b1, a.b1, a.hidden, a.hidden, tid, 256);
+  bar_sync(1, 256);
   mbar_wait(xbar, 0);
   const int nvalid = (int)min((long long)M, a.rows - row0);
-  ln_rows<true>(sA, wg * 64 + (warp & 3) * 16, nvalid, lane, CP, C, a.ln2w, a.ln2b);
+  ln_rows<true>(sA, wg * 64 + (warp & 3) * 16, nvalid, lane, CP, C, ln2w, ln2b,
+                reinterpret_cast<float2*>(smem + a.off_scr + SCRATCH_BYTES) + warp * 16);
   fence_proxy_async();
   bar_sync(wg_bar, 128);
 
   // ---- y = fc2(gelu(fc1(LN2(x)))), x back into sA after the last fc1
   float res[NH][NP / 2];
-  mlp_chunks<CP>(res, sA_s, smem + a.off_h, ring, a.b1, a.hidden, true, load_x);
+  mlp_chunks<CP>(res, sA_s, smem + a.off_h, reinterpret_cast<float2*>(smem + a.off_scr), ring,
+                 b1, a.hidden, true, load_x);
 
   // ---- out = x + bf16(y + b2) over x in the tile, then the rows by TMA
   mbar_wait(xbar, 1);
@@ -120,14 +136,14 @@ __global__ void __launch_bounds__(THREADS, 1) swin_mlp_kernel(
     for (int j = 0; j < NP / 8; ++j) {
       const int col = p * NP + 8 * j + 2 * q4;
       if (col < C) {
-        const float2 b2 = ldg2(a.b2 + col);
+        const float2 bo = lds2(b2 + col);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           __nv_bfloat162* px =
               reinterpret_cast<__nv_bfloat162*>(sA + swz(r0 + 8 * h, col));
           const float2 xv = __bfloat1622float2(*px);
-          const float y0 = __bfloat162float(__float2bfloat16(res[p][4 * j + 2 * h] + b2.x));
-          const float y1 = __bfloat162float(__float2bfloat16(res[p][4 * j + 2 * h + 1] + b2.y));
+          const float y0 = __bfloat162float(__float2bfloat16(res[p][4 * j + 2 * h] + bo.x));
+          const float y1 = __bfloat162float(__float2bfloat16(res[p][4 * j + 2 * h + 1] + bo.y));
           *px = __floats2bfloat162_rn(xv.x + y0, xv.y + y1);
         }
       }
@@ -150,14 +166,20 @@ cudaError_t launch(MlpArgs a, const void* x, void* out, const void* w1, const vo
   if (!make_map(&maps.w1, w1, a.C, a.hidden, HC) || !make_map(&maps.w2, w2, a.hidden, a.C, NP)
       || !make_map(&maps.x, x, a.C, a.rows, 64) || !make_map(&maps.o, out, a.C, a.rows, 64))
     return cudaErrorInvalidValue;
-  // LN / x tile, two hidden chunks, the ring, barriers
+  // LN / x tile, two hidden chunks, the ring, the GELU's scratch and LN2's
+  // row statistics, the staged parameters, barriers
   const int tile = M * CP * 2;
+  const int prm_bytes = 4 * (3 * CP + a.hidden);
   a.off_h = tile;
-  a.off_ring = tile + 4 * BLK;
-  const int fixed = a.off_ring + 16 * MAX_STAGES + 16 + 1024;
+  a.off_ring = tile + 2 * M * HC * 2;
+  const int scr_bytes = SCRATCH_BYTES + 8 * 16 * 8;   // the GELU's scratch, LN2's row statistics
+  const int fixed = a.off_ring + scr_bytes + prm_bytes + 16 * MAX_STAGES + 16 + 1024;
   a.stages = (227 * 1024 - fixed) / SLAB;
   if (a.stages > MAX_STAGES) a.stages = MAX_STAGES;
-  a.off_bar = a.off_ring + a.stages * SLAB;
+  if (a.stages < 2) return cudaErrorInvalidValue;
+  a.off_scr = a.off_ring + a.stages * SLAB;
+  a.off_prm = a.off_scr + scr_bytes;
+  a.off_bar = (a.off_prm + prm_bytes + 7) & ~7;
   const int smem = a.off_bar + 16 * MAX_STAGES + 16 + 1024;
   cudaError_t e = cudaFuncSetAttribute(
       swin_mlp_kernel<CP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

@@ -213,6 +213,37 @@ def test_swin_block_kernel_widths(gen, c, heads, hid, shape):
         assert kernels.block_errors_pass(e), (shift, e)
 
 
+@pytest.mark.parametrize("c,heads", [(64, 2), (96, 3), (256, 8)])
+@pytest.mark.parametrize("shape", [
+    (4, 90, 160),     # 2304 windows, 461 groups: several per resident CTA
+    (1, 20, 35),      # 28 windows, 6 groups: fewer groups than SMs, ragged
+    (3, 70, 95)])     # 798 windows, 160 groups: the ragged one a CTA's second
+def test_swin_block_kernel_walks(gen, c, heads, shape):
+    """K2's CTAs walk the groups of five windows with a static stride, one
+    CTA an SM: many groups a CTA, fewer groups than SMs, and a ragged last
+    group that a CTA reaches after another, each in one launch."""
+    wts = _swin_weights(gen, c, 2 * c, heads)
+    windows = shape[0] * (shape[1] // 5) * (shape[2] // 5)
+    groups = -(-windows // 5)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if shape[0] == 4:
+        assert groups > 3 * sms
+    elif shape[0] == 1:
+        assert groups < sms and windows % 5
+    else:
+        assert sms < groups - 1 < 2 * sms and windows % 5
+    for shift, pad_h, pad_w in ((0, 1, 2), (2, 3, 1)):
+        x = _bf16((*shape, c), gen)
+        y = _bf16((*shape, c), gen)
+        kernels.reset_launches()
+        out = kernels.swin_block(x, y, wts, 5, shift, pad_h, pad_w, heads)
+        assert kernels.LAUNCHES["swin_block"] == 1
+        ref = kernels.swin_block_plain(x, y, wts, 5, shift, pad_h, pad_w, heads)
+        # held to the block's update, not its output (kernels/swin.py)
+        e = kernels.block_errors(out, ref, x)
+        assert kernels.block_errors_pass(e), (shift, e)
+
+
 def _swin_weights(gen, c=256, hid=512, heads=8):
     from speinet_tpu_torch.models.swinir import relative_position_index
 
